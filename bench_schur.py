@@ -1,14 +1,15 @@
-"""Benchmark: batched EO-block Schur complement throughput (GFLOP/s/chip).
+"""Benchmark: batched EO-block Schur complement throughput (GFLOP/s).
 
 The parity-path flagship kernel (ops/schur.reduce_eo) is dominated by the
-dense update S = N11 - W @ N12^T with W = N12 * blockdiag(inv N22) — an MXU
+dense update S = N11 - W @ N12^T with W = N12 * blockdiag(inv N22) — a
 matmul of shape [nR, 6M] x [6M, nR].  This bench measures its sustained
-f32 GFLOP/s on one chip against the v5e-class peak, plus the batched 6x6
-inversion rate.
+f32 GFLOP/s on one device (batched 6x6 inversions included).
 
 Prints ONE JSON line:
   {"metric": "schur_gflops_per_chip", "value": N, "unit": "GFLOP/s",
-   "vs_baseline": N / java_gflops}
+   "vs_baseline": N / java_gflops, "device": {...}}
+"device" holds the platform, device_kind and device count as JAX reports
+them and each card's name and power limit from nvidia-smi.
 The baseline denominator credits the reference's scalar per-image loops
 (BundleAdjustment.java:1197-1342, single-threaded JVM) with 2 GFLOP/s —
 generous for packed triple-loop Java.
@@ -27,6 +28,7 @@ def main():
     import jax
     import jax.numpy as jnp
 
+    from bundle_adjustment_tpu import device
     from bundle_adjustment_tpu.ops.schur import reduce_eo
 
     nR = int(sys.argv[1]) if len(sys.argv) > 1 else 4096
@@ -65,6 +67,7 @@ def main():
         "value": round(gflops, 1),
         "unit": "GFLOP/s",
         "vs_baseline": round(gflops / 2.0, 1),
+        "device": device.describe(),
     }))
 
 

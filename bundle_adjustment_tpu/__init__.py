@@ -1,6 +1,6 @@
-"""bundle_adjustment_tpu — TPU-native rigorous bundle adjustment.
+"""bundle_adjustment_tpu — accelerator-native rigorous bundle adjustment.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 JAICOV library (applied-geodesy/bundle-adjustment): rigorous least-squares
 bundle adjustment for close-range photogrammetry with full stochastic
 modelling — fully populated observation dispersion matrices and the fully

@@ -18,10 +18,10 @@ import time
 
 
 def _configure_backend(args) -> None:
+    """Precision only: the adjustment runs on the backend JAX picks
+    (``JAX_PLATFORMS=cpu`` selects the CPU)."""
     import jax
 
-    if not args.tpu:
-        jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", not args.f32)
 
 
@@ -48,10 +48,8 @@ def _common(parser: argparse.ArgumentParser) -> None:
                         help="points with names longer than this are not "
                              "datum points (reference example heuristic)")
     parser.add_argument("--quiet", action="store_true")
-    parser.add_argument("--tpu", action="store_true",
-                        help="run on the TPU backend (default: CPU, f64)")
     parser.add_argument("--f32", action="store_true",
-                        help="single precision (TPU-native)")
+                        help="single precision (default: double)")
 
 
 def main(argv=None) -> int:

@@ -1,6 +1,6 @@
 """Numerical constants and defaults.
 
-TPU-native re-design of the reference constants
+Array-native re-design of the reference constants
 (`JAICOV/src/org/applied_geodesy/adjustment/Constant.java:61-75`,
 `DefaultValue.java:25-33`).
 """

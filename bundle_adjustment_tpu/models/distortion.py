@@ -1,7 +1,7 @@
 """Static distortion-model specification.
 
 The reference attaches per-camera distortion model *objects*
-(`.../camera/distortion/`, models D1-D7 of the survey).  TPU-first, the
+(`.../camera/distortion/`, models D1-D7 of the survey).  For jit, the
 structure must be static: a :class:`DistortionSpec` describes the *layout* of
 a camera's distortion coefficient vector — which models are present, which
 polynomial orders, which Zernike terms — and the coefficient *values* live in

@@ -1,7 +1,7 @@
 """Compiled array representation of a bundle-adjustment problem.
 
 ``compile_problem`` flattens the object graph (models/scene.py) into the
-TPU-native index-based description: static int index arrays + parameter
+array-native index-based description: static int index arrays + parameter
 blocks.  This is the boundary between the host-side builder world and the
 jit-compiled compute path: everything downstream operates on
 :class:`ParamState` pytrees and the (host, numpy) metadata in

@@ -4,7 +4,7 @@ User-facing model objects mirror the reference's graph
 (Camera -> Image -> ImageCoordinate -> ObjectCoordinate, ScaleBar,
 DirectlyObservedParameterGroup; survey rows C1-C8, B1-B8) but compile into a
 static, index-based array description (:class:`BundleProblem`) — the
-TPU-native representation: per-observation int index arrays plus parameter
+array-native representation: per-observation int index arrays plus parameter
 blocks ``points[P,3]``, ``io[C,3]``, ``dist[C,K]``, ``eo[M,6]``.
 
 Fixed parameters (the reference's ``column == Integer.MAX_VALUE`` protocol,

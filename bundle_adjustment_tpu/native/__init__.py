@@ -40,7 +40,7 @@ def _load_library():
         try:
             if (not os.path.exists(_SO)
                     or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
-                tmp = _SO + ".tmp"
+                tmp = f"{_SO}.{os.getpid()}.tmp"
                 subprocess.run(
                     ["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
                      "-o", tmp, _SRC],

@@ -1,6 +1,6 @@
 """Normal-equation assembly: N = A^T P A, n = A^T P w.
 
-TPU-first re-design of the reference's scalar stacking loop
+Array-native re-design of the reference's scalar stacking loop
 (`derivation/PartialDerivativeFactory.stackNormalEquationSystem`,
 PartialDerivativeFactory.java:475-505): instead of per-row scalar
 scatter-adds, local per-observation blocks H = J^T P J [L, L] and

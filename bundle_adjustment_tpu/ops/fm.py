@@ -1,14 +1,12 @@
 """Feature-major forward model: collinearity + distortion rows as [N] lanes.
 
-TPU tiling pads the minor two dimensions of every array to (8, 128); batched
-per-observation blocks shaped [N, 2, k] therefore occupy 12-64x their
-logical bytes in HBM and the hot loops run at a few percent of the memory
-bandwidth.  This module evaluates the same closed forms as
-`ops/collinearity.py` / `ops/analytic.py` (survey E1, E6-E10;
-`derivation/PartialDerivativeFactory.java:58-195` and the distortion
-factories) with every per-observation scalar held as a **row of length N**
-(N on the 128-wide lane axis, padding ~1x), producing the Jacobian as a
-list of [N] feature rows instead of an [N, 2, 12+K] block tensor.
+Batched per-observation blocks shaped [N, 2, k] keep tiny minor dimensions
+(2 and k) that fit vector hardware badly.  This module evaluates the same
+closed forms as `ops/collinearity.py` / `ops/analytic.py` (survey E1,
+E6-E10; `derivation/PartialDerivativeFactory.java:58-195` and the
+distortion factories) with every per-observation scalar held as a **row of
+length N** (one contiguous array), producing the Jacobian as a list of [N]
+feature rows instead of an [N, 2, 12+K] block tensor.
 
 The scalar/vmap implementations remain the parity oracle;
 `tests/test_engine_fm.py` pins this path against them.
@@ -62,25 +60,12 @@ class ProjectionRows(NamedTuple):
     dZ: jnp.ndarray
 
 
-def project_rows(X, Y, Z, c, X0, Y0, Z0, omega, phi, kappa,
-                 lo=None) -> ProjectionRows:
+def project_rows(X, Y, Z, c, X0, Y0, Z0, omega, phi, kappa) \
+        -> ProjectionRows:
     """xs = -c kx / N etc. (PartialDerivativeFactory.java:141-149), all
-    inputs/outputs [N] rows.
-
-    ``lo``: optional low-order compensation rows (Xlo, Ylo, Zlo, X0lo, Y0lo,
-    Z0lo) of a two-float (hi+lo) state.  In f32 the state quantisation
-    eps*|X| (~2e-4 at km-scale coordinates) floors the achievable step size;
-    with hi/lo state the critical differences dX = X - X0 are formed as
-    (Xhi - X0hi) + (Xlo - X0lo) — each f32 subtraction is exactly rounded,
-    so dX carries ~2 eps *relative* error regardless of |X| (survey
-    hard-part 1: f32 with compensated accumulation instead of f64)."""
+    inputs/outputs [N] rows."""
     R = rotation_rows(omega, phi, kappa)
     dX, dY, dZ = X - X0, Y - Y0, Z - Z0
-    if lo is not None:
-        Xlo, Ylo, Zlo, X0lo, Y0lo, Z0lo = lo
-        dX = dX + (Xlo - X0lo)
-        dY = dY + (Ylo - Y0lo)
-        dZ = dZ + (Zlo - Z0lo)
     kx = R.r11 * dX + R.r21 * dY + R.r31 * dZ
     ky = R.r12 * dX + R.r22 * dY + R.r32 * dZ
     Ndn = R.r13 * dX + R.r23 * dY + R.r33 * dZ
@@ -91,16 +76,15 @@ def project_rows(X, Y, Z, c, X0, Y0, Z0, omega, phi, kappa,
 
 
 def jacobian_rows(X, Y, Z, x0, y0, c, X0, Y0, Z0, omega, phi, kappa,
-                  coeffs, spec: DistortionSpec, r0, lo=None):
+                  coeffs, spec: DistortionSpec, r0):
     """Full analytic A-rows and misclosure inputs, feature-major.
 
     coeffs: list of K [N] rows (gathered per observation).
-    ``lo``: optional hi/lo compensation rows (see project_rows).
     Returns (rows_x, rows_y, pred_x, pred_y): rows_* are lists of 12+K [N]
     rows ordered [X Y Z x0 y0 c X0 Y0 Z0 omega phi kappa, coeffs...] —
     the same layout as ops/analytic.analytic_image_jacobian_and_residual.
     """
-    p = project_rows(X, Y, Z, c, X0, Y0, Z0, omega, phi, kappa, lo=lo)
+    p = project_rows(X, Y, Z, c, X0, Y0, Z0, omega, phi, kappa)
     xs, ys, Ndn, R = p.xs, p.ys, p.N, p.R
     ck, sk = jnp.cos(kappa), jnp.sin(kappa)
     zero = jnp.zeros_like(Ndn)

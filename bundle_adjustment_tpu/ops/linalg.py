@@ -1,7 +1,7 @@
 """Dense linear-algebra utilities.
 
 The reference's numerics core (`adjustment/MathExtension.java`, survey A1/A2)
-wraps packed LAPACK routines; on TPU the same surface maps onto XLA's native
+wraps packed LAPACK routines; here the same surface maps onto XLA's native
 linalg (Cholesky/LU/SVD/eigh run as compiled kernels — there are no Python
 stand-ins in the compute path):
 

@@ -8,7 +8,7 @@ images) and each elimination only updates retained x retained entries, the
 sequential loop is mathematically one *global* block elimination with a
 block-diagonal N22 — which is what we compute here, batched:
 
-    S  = N11 - N12 * blockdiag(inv N22_m) * N21      (one big matmul, MXU)
+    S  = N11 - N12 * blockdiag(inv N22_m) * N21      (one big matmul)
     nr = n1  - N12 * blockdiag(inv N22_m) * n2
     dx2_m = inv(N22_m) (n2_m - N21_m dx1)            (batched back-subst.)
 

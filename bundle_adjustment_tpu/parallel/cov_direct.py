@@ -3,21 +3,22 @@
 The reference's REDUCED inversion mode factorises the retained block and
 inverts it on the final pass (BundleAdjustment.java:255-298, :65-70,
 MathExtension.java:338-366); the point-eliminated mirror image of that at
-TPU scale is: the reduced camera+global system S is *small* (u = 6M + G;
+scale is: the reduced camera+global system S is *small* (u = 6M + G;
 ~3k at 500 images, ~30k at 5000), so assemble it densely once, factorise it
-on the MXU, and recover *every* point's 3x3 posterior block (and any
-camera/global block) from S^{-1} by block gathers — no per-block PCG.
+with dense matmul-heavy kernels, and recover *every* point's 3x3 posterior
+block (and any camera/global block) from S^{-1} by block gathers — no
+per-block PCG.
 
     Q_cam       = S^{-1}
     Qpp[p]      = Hpp^{-1}[p] + C_p^T S^{-1} C_p
     C_p         = Hxp[:, p] Hpp^{-1}[p]    (nonzero at p's V image blocks
                                             and the global rows)
 
-Complexity: assembly is sum_p (3 x 6M) panel matmuls (chunked, MXU),
+Complexity: assembly is sum_p (3 x 6M) panel matmuls (chunked),
 factor+inverse is O(u^3) once, then every point block costs a [V6+G]^2
-gather + tiny einsums — measured ~1000x the per-block rate of the
-matrix-free PCG recovery (`parallel/covariance.py`), which remains the
-right tool when u itself is too large to factorise.
+gather + tiny einsums — far cheaper per block than the matrix-free PCG
+recovery (`parallel/covariance.py`), which remains the right tool when u
+itself is too large to factorise.
 
 All functions take the feature-major `engine.FMProblem`/`FMBlocks`
 (uniform point-major layout).  The reduced system here is the *damped*
@@ -33,9 +34,9 @@ import numpy as np
 
 from . import engine
 
-# TPU f32 matmuls default to one bf16xbf16 MXU pass, silently rounding both
-# operands to bf16 (~4e-3 relative): unacceptable for covariance / normal-
-# equation products.  All value x value contractions here pin full f32.
+# An f32 matmul without a stated precision may run in TF32 on the GPU (about
+# three decimal digits): unacceptable for covariance / normal-equation
+# products.  All value x value contractions here pin full f32.
 _PREC = jax.lax.Precision.HIGHEST
 
 
@@ -56,15 +57,15 @@ def _choose_chunk(P: int, target: int = 4096) -> int:
 
 def _hpc_rows(b: engine.FMBlocks):
     """Per-observation Hpc = Jp^T P Jc as an [N, 3, 6] array (small-N
-    paths only — on TPU the (3, 6) minor dims tile-pad to (8, 128))."""
+    paths only; the large paths keep the 2D row form below)."""
     rows = [[b.Jp[a] * b.PJc[e] + b.Jp[3 + a] * b.PJc[6 + e]
              for e in range(6)] for a in range(3)]
     return jnp.stack([jnp.stack(r, axis=1) for r in rows], axis=1)
 
 
 def _hpc_rows2d(b: engine.FMBlocks):
-    """Hpc as 18 feature rows [18, N], row index a*6 + e — the TPU-safe
-    2D form (pads 18 -> 24 sublanes, ~1.3x, vs ~30x for [N, 3, 6])."""
+    """Hpc as 18 feature rows [18, N], row index a*6 + e — the 2D row
+    form of the feature-major engine (each row one contiguous array)."""
     return jnp.stack([b.Jp[a] * b.PJc[e] + b.Jp[3 + a] * b.PJc[6 + e]
                       for a in range(3) for e in range(6)])
 
@@ -108,10 +109,8 @@ def _hinv3(b: engine.FMBlocks):
 
 
 #: image count above which the per-image reduction falls back to chunked
-#: scatter-adds (below it the one-hot MXU reduction avoids the element
-#: scatter that dominated the 100k fused covariance — r05 exp_cov100k:
-#: 1.53 s assemble).  Held at 2048 so the proven 1M/5000-image staged
-#: pipeline keeps its exact program shapes (config-5 risk containment).
+#: scatter-adds (below it a one-hot matmul reduction replaces the element
+#: scatter; the one-hot operand grows with M).
 ONEHOT_M_MAX = 2048
 
 
@@ -121,23 +120,20 @@ def assemble_reduced_base(p: engine.FMProblem, b: engine.FMBlocks,
     the global Sgg — consumes only the Jc/PJc/Jg/PJg/Jp rows (XLA
     dead-code-eliminates the rest of the linearisation), so it can run as
     its own program at the 1M-point scale where the full one-shot
-    assembly exceeds HBM.  Returns S0 [u, u] with the camera-camera
+    assembly exceeds device memory.  Returns S0 [u, u] with the camera-camera
     correction still missing (see `assemble_reduced_corrections`)."""
     b = engine.materialize_global_rows(p, b)
     M, G2 = p.num_images, len(b.Jg) // 2
     K = 6 * M
     dt = b.Jp[0].dtype
 
-    # per-image full blocks, chunked over observations.  The [Nip, F]
-    # permutation-gather of _image_sum_stack decomposes into per-column
-    # 128x-tile-padded copies when the rows come from jit arguments
-    # (bigargs mode; measured 20 x 586 MB HLO temps = OOM).  Dispatch:
-    #   M <= ONEHOT_M_MAX  one-hot MXU reduction O^T @ feat (exact: the
+    # per-image full blocks, chunked over observations (no [Nip, F]
+    # permutation-gather of all feature rows at once).  Dispatch:
+    #   M <= ONEHOT_M_MAX  one-hot matmul reduction O^T @ feat (exact: the
     #                      0/1 one-hot is exact in bf16 and the f32 value
     #                      operand rides a 3-way bf16 split; f64 keeps a
-    #                      plain HIGHEST dot) — the chip fast path
-    #   else               per-chunk scatter-add (the element scatter is
-    #                      slow but M-independent)
+    #                      plain HIGHEST dot)
+    #   else               per-chunk scatter-add (M-independent)
     iu = np.triu_indices(6)
     F99 = 21 + 6 * G2
     img = p.obs_image.astype(jnp.int32)
@@ -204,7 +200,7 @@ def assemble_reduced_base(p: engine.FMProblem, b: engine.FMBlocks,
     T2 = jnp.matmul(JgM, PJgM.T, precision=_PREC)
     Hgg = T2[:G2, :G2] + T2[G2:, G2:] + jnp.diag(b.extra_g)
 
-    # Sgg correction via 2D row matmuls ([P, 3, G] tile-pads ~12x at 1M)
+    # Sgg correction via 2D row matmuls
     hpg_rows = _hpg_rows2d(p, b)      # [3G, P]
     W_rows = _w_rows2d(b, hpg_rows, G2)
     T3 = jnp.matmul(W_rows, hpg_rows.T, precision=_PREC)  # [3G, 3G]
@@ -214,8 +210,7 @@ def assemble_reduced_base(p: engine.FMProblem, b: engine.FMBlocks,
 
     u = K + G2
     S0 = jnp.zeros((u, u), dt)
-    # block-diagonal add via 2D scatter: a [M, 6, M, 6] reshape tile-pads
-    # to (…, 8, …, 128) on TPU — 76.8 GB at M = 5000 (measured OOM)
+    # block-diagonal add via 2D scatter (no [M, 6, M, 6] intermediate)
     i6 = jnp.arange(6)
     bi = jnp.arange(M)[:, None, None] * 6
     S0 = S0.at[bi + i6[None, :, None], bi + i6[None, None, :]].add(Hcc)
@@ -226,16 +221,13 @@ def assemble_reduced_base(p: engine.FMProblem, b: engine.FMBlocks,
 
 
 def _mm_split3(A, B):
-    """A @ B in 3 native bf16 MXU passes (a1b1 + a1b2 + a2b1): ~2^-16
-    relative error — 2x the single-pass-per-operand peak rate of
-    Precision.HIGHEST's 6 passes, far beyond the ~4e-3 of one bf16 pass.
-    For the O(P*K^2) covariance correction panels at the 1M scale, where
-    HIGHEST costs minutes of MXU time.
+    """A @ B in 3 native bf16 matmul passes (a1b1 + a1b2 + a2b1): ~2^-16
+    relative error, far beyond the ~4e-3 of one bf16 pass.  For the
+    O(P*K^2) covariance correction panels at the 1M scale.
 
     The three passes ride ONE dot over a concatenated contraction axis —
     three separate dots each materialise a [K, K] f32 partial before the
-    adds when XLA declines to fuse them (measured r05: 20.5 GB compile
-    OOM at chunk = 1202 vs a clean fit at 416)."""
+    adds when XLA declines to fuse them."""
     f32 = jnp.float32
     bf = jnp.bfloat16
     a1 = A.astype(bf)
@@ -267,14 +259,13 @@ def assemble_corrections_outer(p: engine.FMProblem, b: engine.FMBlocks,
                                chunk: int | None = None,
                                split_dots: bool | None = None):
     """Camera-camera / camera-global Schur corrections via per-view
-    OUTER-PRODUCT panel fills + one stacked MXU dot per chunk.
+    OUTER-PRODUCT panel fills + one stacked dot per chunk.
 
-    Replaces `assemble_corrections_panel`'s per-chunk scatter fill (whose
-    c*V*18-element scatters dominated the 100k fused covariance — r05
-    exp_cov100k: 1.53 s assemble) with V broadcasted outer products
-    (VPU, 18*M*c elements per view) building the panels in E-MAJOR row
-    order [3, c, 6, M] -> [(a c), (e M)], so the fill needs no per-element
-    scatters and no [., 3, M, 6] tile-padded destination; the accumulated
+    Replaces `assemble_corrections_panel`'s per-chunk scatter fill
+    (c*V*18-element scatters) with V broadcasted outer products
+    (elementwise, 18*M*c elements per view) building the panels in E-MAJOR
+    row order [3, c, 6, M] -> [(a c), (e M)], so the fill needs no
+    per-element scatters and no [., 3, M, 6] destination; the accumulated
     (Acc, Acg) are permuted to the camera-major (6m+e) layout ONCE at the
     end.  Same O(P * 3 * K^2) dot flops as the panel form.
 
@@ -339,25 +330,22 @@ def assemble_corrections_panel(p: engine.FMProblem, b: engine.FMBlocks,
                                chunk: int | None = None,
                                split_dots: bool = False):
     """Camera-camera / camera-global Schur corrections via dense
-    [3c, K] PANEL products on the MXU (the r03 fused form).
+    [3c, K] PANEL products.
 
     Per point chunk: scatter the per-observation Hpc blocks (and their
-    Hpp^{-1}-applied twins — computed as cheap VPU row ops per
+    Hpp^{-1}-applied twins — computed as cheap elementwise row ops per
     observation, no depth-3 matmul) into dense [c, 3, M, 6] panels
-    (c*V*18 scattered elements each — small), then one MXU matmul
+    (c*V*18 scattered elements each — small), then one matmul
     accumulates Acc += D^T B and a second Acg += D^T Wpg.
-    O(P * 3 * K^2) flops — the fast path while K = 6M is small (measured
-    r03: the whole 100k/500-image covariance in 0.235 s vs 1.5 s for the
-    sparse pair-block path, whose c*V^2*36-element scatter-adds dominate
-    at small K).  `assemble_reduced_corrections` (sparse pair blocks,
-    O(P * V^2 * 36) flops) has fewer flops when K is large, but its giant
-    scatter-adds hang the TPU compiler at the 1M/5000-image scale
-    (measured round-5: one chunk's compile > 18 min).
+    O(P * 3 * K^2) flops — matmul-bound while K = 6M is small, where the
+    sparse pair-block path's c*V^2*36-element scatter-adds dominate.
+    `assemble_reduced_corrections` (sparse pair blocks, O(P * V^2 * 36)
+    flops) has fewer flops when K is large.
 
     ``split_dots``: run the big D^T B product with `_mm_split3` (3 bf16
-    passes, ~2^-16) instead of Precision.HIGHEST (6 passes, f32-exact) —
-    2x MXU rate for the 1M configuration at an error far below the
-    statistical meaning of a covariance.  Returns (Acc [K,K], Acg [K,G])."""
+    passes, ~2^-16) instead of Precision.HIGHEST (f32-exact), at an error
+    far below the statistical meaning of a covariance.  Returns
+    (Acc [K,K], Acg [K,G])."""
     G2 = engine._G2(p, b)
     K = 6 * p.num_images
     dt = b.Jp[0].dtype
@@ -374,11 +362,9 @@ def assemble_corrections_panel(p: engine.FMProblem, b: engine.FMBlocks,
 
 
 def panel_rows(p: engine.FMProblem, b: engine.FMBlocks):
-    """The three row arrays the multi-dispatch corrections stepper consumes:
-    (hpc2 [18, N], brow2 [18, N] — the Hpp^{-1}-applied twin, W_rows
-    [3G, P]).  Run this as its own jitted program at the 1M scale and feed
-    the outputs to `corrections_group` as ARGUMENTS, so the expensive
-    linearisation happens once, not once per dispatch."""
+    """The three row arrays the panel corrections and the dense recovery
+    consume: (hpc2 [18, N], brow2 [18, N] — the Hpp^{-1}-applied twin,
+    W_rows [3G, P])."""
     b = engine.materialize_global_rows(p, b)
     G2 = len(b.Jg) // 2
     hpc2 = _hpc_rows2d(b)
@@ -394,37 +380,13 @@ def panel_rows(p: engine.FMProblem, b: engine.FMBlocks):
     return hpc2, brow2, W_rows
 
 
-def panel_chunking(p: engine.FMProblem, K: int,
-                   group_target_s: float = 3.0, split_dots: bool = True,
-                   slab_bytes: float = 3.0e8):
-    """(chunk, chunks_per_group) for the stepper: chunk bounded by the
-    ~300 MB panel slabs; group sized so one dispatch stays a few seconds
-    of MXU time (TPU worker watchdog safety — r03 measured a single
-    multi-minute dispatch surfacing as a kernel fault).  A 1 GB budget
-    (chunk = 1202) was tried for fatter MXU matmuls and RESOURCE_EXHAUSTED
-    at 1M runtime next to the [K, K] accumulator + dot output (r05);
-    chunk = 416 completes the 1M corrections in ~263 s."""
-    target = max(128, int(slab_bytes / (24 * K)))
-    chunk = _choose_chunk(p.num_points, min(4096, target))
-    passes = 3 if split_dots else 6
-    flops_per_chunk = passes * 2 * 3 * chunk * K * K
-    per_chunk_s = flops_per_chunk / 1.3e14
-    group = max(1, int(group_target_s / max(per_chunk_s, 1e-6)))
-    nchunks = p.num_points // chunk
-    group = min(group, nchunks)
-    while nchunks % group:
-        group -= 1
-    return chunk, group
-
-
 def corrections_group(p: engine.FMProblem, hpc2, brow2, W_rows, G2: int,
                       Acc, Acg, i0, chunk: int, ngroup: int,
                       split_dots: bool = True):
     """``ngroup`` panel chunks of the corrections accumulation, starting at
     chunk index ``i0`` (traced — ONE compiled program serves every group).
     Donate (Acc, Acg) when jitting.  See `assemble_corrections_panel` for
-    the panel formulation; this is its multi-dispatch form for the 1M
-    configuration."""
+    the panel formulation."""
     M = p.num_images
     V = p.views
     K = 6 * M
@@ -449,21 +411,18 @@ def corrections_group(p: engine.FMProblem, hpc2, brow2, W_rows, G2: int,
         def panel(rows2):
             if dt == jnp.float64 or M <= 1024:
                 # scatter fill: exact, and fine while the [c, 3, M, 6]
-                # destination stays small — the 20x tile-pad pathology
-                # appears at M = 5000 (11.5 GB), while at M = 500 the
-                # one-hot batched fill's tiny [18, 3V] x [3V, M] matmuls
-                # run at ~2% MXU utilisation (r05: the 100k fused
-                # covariance regressed 0.25 s -> 9.9 s on the fill)
+                # destination stays small; at small M the one-hot batched
+                # fill's tiny [18, 3V] x [3V, M] matmuls waste the
+                # matrix unit
                 hpc = jax.lax.dynamic_slice(
                     rows2, _i32c(0, o0), (18, cV)).T.reshape(cV, 3, 6)
                 pl = jnp.arange(cV, dtype=jnp.int32) // jnp.int32(V)
                 D = jnp.zeros((chunk, 3, M, 6), dt).at[
                     pl, :, im.reshape(-1), :].add(hpc)
                 return D.reshape(chunk * 3, K)
-            # one-hot batched MXU fill: the former [c, 3, M, 6] scatter
-            # destination is laid out 20x tile-padded at M = 5000
-            # (11.5 GB — measured r05 compile OOM); the value operand is
-            # split into 3 bf16 chunks so the fill stays f32-exact
+            # one-hot batched matmul fill instead of the [c, 3, M, 6]
+            # scatter destination at large M; the value operand is split
+            # into 3 bf16 chunks so the fill stays f32-exact
             h = jax.lax.dynamic_slice(
                 rows2, _i32c(0, o0), (18, cV)).T.reshape(chunk, V, 18)
             h1 = h.astype(bf)
@@ -500,10 +459,9 @@ def assemble_reduced_corrections(p: engine.FMProblem, b: engine.FMBlocks,
 
     Each point touches only its V image blocks, so its correction is a
     [V6, V6] block outer product — P * (3 * (6V)^2) useful flops (~6e10 at
-    1M pts), where the earlier dense [3c, K] panel formulation spent
-    P * 3 * K^2 (~3e15 at K = 30k; a single dispatch ran past the TPU
-    worker watchdog and surfaced as a kernel fault).  The pair blocks are
-    scatter-added into the [K, K] accumulator once per chunk.
+    1M pts), where the dense [3c, K] panel formulation spends
+    P * 3 * K^2 (~3e15 at K = 30k).  The pair blocks are scatter-added
+    into the [K, K] accumulator once per chunk.
 
     With ``S0`` given returns the corrected S (one-shot path); with
     ``S0=None`` returns (Acc [K, K], Acg [K, G]) so the subtraction runs
@@ -520,8 +478,6 @@ def assemble_reduced_corrections(p: engine.FMProblem, b: engine.FMBlocks,
         chunk = _choose_chunk(P_, min(4096, target))
 
     # all large per-observation/per-point quantities in the 2D row form
-    # (the 3D [N, 3, 6] / [P, 3, G] / [P, 3, 3] forms tile-pad 12-30x on
-    # TPU and RESOURCE_EXHAUSTED the 1M configuration)
     hpc2 = _hpc_rows2d(b)             # [18, N]
     hpg_rows = _hpg_rows2d(p, b)      # [3G, P]
     W_rows = _w_rows2d(b, hpg_rows, G2)
@@ -578,8 +534,8 @@ def apply_corrections(S0, Acc, Acg):
     return S
 
 
-#: flops bound for the panel-form corrections (6*P*K^2); below it the MXU
-#: panel path beats the sparse pair-block scatters (~0.2 s at 5e12 flops)
+#: flops bound for the panel-form corrections (6*P*K^2); below it the
+#: matmul panel path is preferred to the sparse pair-block scatters
 PANEL_FLOPS_MAX = 3e13
 
 
@@ -591,7 +547,7 @@ def assemble_reduced_dense(p: engine.FMProblem, b: engine.FMBlocks,
 
     Exact for arbitrary visibility (duplicate (point, image) pairs
     included).  The camera-camera correction dispatches on ``panel``
-    (auto: flops bound PANEL_FLOPS_MAX): dense MXU panel products
+    (auto: flops bound PANEL_FLOPS_MAX): dense matmul panel products
     (`assemble_corrections_panel`, small K) or sparse pair blocks
     (`assemble_reduced_corrections`, large K).  One-shot form; at memory-
     bound scale run `assemble_reduced_base` and
@@ -612,10 +568,9 @@ def _blocked_spd_solve_panel(L, E, bs: int):
     """X with L L^T X = E by BLOCKED forward+backward substitution.
 
     ``L`` [u_pad, u_pad] lower (u_pad a multiple of ``bs``), ``E``
-    [u_pad, pc].  XLA's monolithic `triangular_solve` lowering at
-    u = 30k requested 66.7 GB of HLO temps (58.7%% fragmentation —
-    measured round-5, the config-5 inverse-stage compile OOM); explicit
-    [bs, bs] x [bs, pc] tiles keep every temp a few hundred MB."""
+    [u_pad, pc].  Explicit [bs, bs] x [bs, pc] tiles keep every temp a
+    few hundred MB, where one monolithic `triangular_solve` at u = 30k
+    may ask for many u x pc temporaries."""
     u_pad = L.shape[0]
     nbb = u_pad // bs
 
@@ -657,14 +612,10 @@ def reduced_inverse(S, panel: int | None = None, block: int = 2048):
     For u beyond ``panel`` the identity right-hand side is streamed in
     column panels solved by BLOCKED substitution
     (`_blocked_spd_solve_panel`): peak extra memory is L + Q + one
-    [u, panel] slab with [block, panel] temps.  Both the one-shot
-    formulation (4 u x u temporaries) and XLA's monolithic
-    triangular_solve on the panels (66.7 GB of fragmented HLO temps)
-    RESOURCE_EXHAUST a 16 GB chip at u = 30k (measured r03/r05)."""
+    [u, panel] slab with [block, panel] temps, where the one-shot
+    formulation holds 4 u x u temporaries."""
     u = S.shape[0]
     if panel is None:
-        # 2048-wide panels on the blocked path: the r05 chip run at
-        # u = 30010 exceeded HBM by just 51 MB with 4096-wide slabs
         panel = u if u <= 4096 else 1024
     if panel >= u:
         L = jnp.linalg.cholesky(S)
@@ -697,9 +648,8 @@ def reduced_inverse(S, panel: int | None = None, block: int = 2048):
 
 
 #: reduced-system size above which the dense-panel recovery's
-#: O(2 u^2 3P) MXU flops exceed the row-gather path's read cost — below
-#: it the panel form is gather-free and MXU-bound (r05 exp_cov100k: the
-#: row-gather recovery was 0.83 s of the 2.4 s fused 100k covariance)
+#: O(2 u^2 3P) matmul flops exceed the row-gather path's read cost —
+#: below it the panel form is gather-free and matmul-bound
 DENSE_RECOVERY_U_MAX = 8192
 
 
@@ -712,23 +662,18 @@ def _emajor_perm(M: int, G2: int) -> np.ndarray:
 
 
 def _pcd_dense_all(p, brow2, w_rows, hinv_rows, Qred, G2: int,
-                   chunk: int, stage: str = "full"):
-    """All-points recovery as dense MXU panels, entirely in ROW FORM.
+                   chunk: int):
+    """All-points recovery as dense matmul panels, entirely in ROW FORM.
 
     Per chunk and per point-axis component b: build the coupling panel
     D_b [u, c] (e-major camera rows) by V broadcasted outer products of
     the Hpp^{-1}-applied rows ``brow2`` (= E in row form, index b*6+e)
-    with the per-view one-hot — no gathers, no scatters, no 3-minor-dim
-    tile padding; the global rows are ``w_rows`` slices (= C_p's global
+    with the per-view one-hot — no gathers, no scatters, no size-3 minor
+    dimension; the global rows are ``w_rows`` slices (= C_p's global
     block, index b*G+g).  One matmul Y_b = Qem @ D_b each, and the sym
     rows fall out of contiguous axis-0 reductions sum_u D_b * Y_d.
-    O(2 u^2 3P) flops, zero element gathers.  (The first cut of this
-    path reshaped [u, 3c] -> [u, 3, c] for the reductions — the 3-minor
-    tile pad plus strided slices cost 0.52 s of its 0.82 s at 100k,
-    r05 tools/exp_rec.py.)
-
-    ``stage``: probe hook (tools/exp_rec.py) — "fill"/"dot" stop the
-    body early and return dummy rows.  Returns the 6 sym rows [6, P]."""
+    O(2 u^2 3P) flops, zero element gathers.  Returns the 6 sym rows
+    [6, P]."""
     V = p.views
     M = p.num_images
     K = 6 * M
@@ -770,8 +715,6 @@ def _pcd_dense_all(p, brow2, w_rows, hinv_rows, Qred, G2: int,
                 [Dem[bq].reshape(K, chunk),
                  w[bq * G2:(bq + 1) * G2]])                   # [u, c]
             Ds.append(Db)
-            if stage == "fill":
-                continue
             if split:
                 b1 = Db.astype(bf)
                 r1 = Db - b1.astype(dt)
@@ -780,14 +723,6 @@ def _pcd_dense_all(p, brow2, w_rows, hinv_rows, Qred, G2: int,
                 Ys.append(jnp.dot(Qcat, B3, preferred_element_type=dt))
             else:
                 Ys.append(jnp.matmul(Qem, Db, precision=_PREC))
-        if stage == "fill":  # probe mode
-            return jax.lax.dynamic_update_slice(
-                acc, jnp.broadcast_to(sum(jnp.sum(D) for D in Ds),
-                                      (6, chunk)), _i32c(0, c0))
-        if stage == "dot":  # probe mode
-            return jax.lax.dynamic_update_slice(
-                acc, jnp.broadcast_to(sum(jnp.sum(Y) for Y in Ys),
-                                      (6, chunk)), _i32c(0, c0))
         rows = jnp.stack([
             h6[k] + jnp.sum(Ds[bq] * Ys[dq], axis=0)
             for k, (bq, dq) in enumerate(
@@ -803,7 +738,7 @@ def point_covariance_dense(p: engine.FMProblem, b: engine.FMBlocks, Qred,
     for the selected points (all points when ``point_ids`` is None), given
     the dense reduced-cofactor Qred = S^{-1} from `reduced_inverse`.
 
-    All-points with u <= `DENSE_RECOVERY_U_MAX`: gather-free dense MXU
+    All-points with u <= `DENSE_RECOVERY_U_MAX`: gather-free dense matmul
     panels (`_pcd_dense_all`).  Otherwise: gathers the rows of Qred that
     p's coupling touches and contracts with the compact C_p —
     O(k (6V+G)^2) total.  Returns [k, 3, 3]."""
@@ -813,10 +748,9 @@ def point_covariance_dense(p: engine.FMProblem, b: engine.FMBlocks, Qred,
     K = 6 * M
     dt = b.Jp[0].dtype
 
-    # large per-observation/per-point quantities kept in the 2D row form
-    # ([N, 3, 6] / [P, 3, 3] / [P, 3, G] tile-pad 12-30x on TPU —
-    # RESOURCE_EXHAUSTED at the 1M configuration); chunks gathered from
-    # the rows are transposed into small block tensors
+    # large per-observation/per-point quantities kept in the 2D row form;
+    # chunks gathered from the rows are transposed into small block
+    # tensors
     hpc2 = _hpc_rows2d(b)                                 # [18, N]
     hinv_rows = jnp.stack(list(b.Hpp_inv))                # [6, P]
     hpg_rows = _hpg_rows2d(p, b)                          # [3G, P]
@@ -880,9 +814,8 @@ def _pcd_chunk(p, hpc2, hinv_rows, hpg_rows, Qred, Qcg, Qgg, G2, ids):
     """Core of the dense point-block recovery for one id chunk; returns
     the 6 sym rows [6, c] (00,01,02,11,12,22).
 
-    Gather strategy (r05, measured): the [c, V6, V6] element gather from
-    Qred costs c*V6^2 random picks at ~1e8/s (127 ms per 2048-point chunk
-    = 6.2 s at 100k); instead ROW-gather p's V6 coupled rows (the fast
+    Gather strategy: instead of the [c, V6, V6] element gather from Qred
+    (c*V6^2 random picks), ROW-gather p's V6 coupled rows (the
     embedding-lookup pattern), contract with E2 FIRST (Y = E2^T R — the
     row panel is still u wide), and only then pick the c*3*V6 needed
     columns — 24x fewer element gathers, and the global cross term falls
@@ -938,9 +871,8 @@ def point_cov_group(p: engine.FMProblem, hpc2, hinv_rows, hpg_rows, Qred,
     """``ngroup`` recovery chunks starting at chunk index ``i0`` (traced —
     one compiled program serves every group); returns the sym rows
     [6, ngroup*chunk].  The multi-dispatch form of the all-points
-    recovery: at 1M the one-dispatch lax.map over 601 chunks faulted the
-    TPU (r05), and the [k, 3, 3] output tile-pads (8, 128) -> 4 GB —
-    rows stay 24 MB."""
+    recovery for the staged 1M pipeline: short dispatches, and the output
+    stays in row form."""
     M = p.num_images
     K = 6 * M
     Qcg = Qred[:K, K:].reshape(M, 6, G2)

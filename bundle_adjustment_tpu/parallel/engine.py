@@ -1,21 +1,17 @@
-"""Feature-major RCS engine: the TPU fast path of the large-scale solver.
+"""Feature-major RCS engine: the fast path of the large-scale solver.
 
 Same mathematics as `parallel/rcs.py` (point-eliminated reduced camera
 system, implicit-Schur PCG with camera-block + global-block
-preconditioning), re-laid-out for the TPU memory system: every
-per-observation quantity is a **feature row of length N** (N on the
-128-wide lane axis) instead of a [N, 2, k] block tensor.  TPU tiling pads
-the two minor dims to (8, 128), so the block layout costs 12-64x its
-logical bytes in HBM capacity *and* bandwidth; rows cost ~1x.  Measured on
-v5e: the XLA Schur matvec drops ~10x and the whole LM step fits in a
-fraction of HBM, unlocking the 1M-point configuration (BASELINE.json
-config 5) on a single chip.
+preconditioning), laid out so that every per-observation quantity is a
+**feature row of length N** instead of a [N, 2, k] block tensor: each row
+is one contiguous array, and XLA fuses the elementwise row algebra of a
+step into few passes over memory.
 
 Reduction strategy (all scatter-free):
   per point : uniform point-major reshape [P, V] -> sum over views
   per image : static permutation to image-sorted order (pad row N), 512-row
               block sums, cumsum-diff over block boundaries
-  global    : plain row reductions / one [F, N] @ [N, F] MXU matmul
+  global    : plain row reductions / one [F, N] @ [N, F] matmul
 
 The reference semantics preserved here are those of rcs.py (survey F1-F9
 mapping); tests pin this engine against the block-layout path bit-for-bit
@@ -33,9 +29,9 @@ import numpy as np
 from ..models.problem import ParamState
 from . import rcs
 
-# TPU f32 matmuls default to one bf16xbf16 MXU pass, silently rounding both
-# operands to bf16 (~4e-3 relative): unacceptable for covariance / normal-
-# equation products.  All value x value contractions here pin full f32.
+# An f32 matmul without a stated precision may run in TF32 on the GPU (about
+# three decimal digits): unacceptable for covariance / normal-equation
+# products.  All value x value contractions here pin full f32.
 _PREC = jax.lax.Precision.HIGHEST
 
 
@@ -66,12 +62,6 @@ class FMProblem(NamedTuple):
     de_val: jnp.ndarray | None = None  # [M, 6]
     dg_w: jnp.ndarray | None = None    # [G]
     dg_val: jnp.ndarray | None = None  # [G]
-    # view-major blocked lane layout (Pallas kernel layout): observation
-    # arrays are ordered (point-block i, view v, point-in-block p) with
-    # lane = i*vm_pb*V + v*vm_pb + p instead of point-major n = pt*V + v.
-    # The point reduce/broadcast become V static 128-aligned lane slices
-    # inside the kernels (no selection matmuls).  None = point-major.
-    vm_pb: int | None = None
 
 
 class FMBlocks(NamedTuple):
@@ -149,8 +139,8 @@ def fm_problem(p: rcs.RCSProblem) -> FMProblem:
 
 def pad_problem(problem: rcs.RCSProblem, state: ParamState,
                 multiple: int = 128):
-    """Pad the point count to a multiple of ``multiple`` (Mosaic lane-block
-    constraint of the Pallas kernels) with zero-weight dummy points.
+    """Pad the point count to a multiple of ``multiple`` (e.g. the mesh
+    size of the point-sharded step) with zero-weight dummy points.
 
     Dummy points copy point 0's coordinates (finite geometry, so the
     Jacobian rows are finite; their zero weights null every contribution)
@@ -241,73 +231,23 @@ def pad_images(problem: rcs.RCSProblem, state: ParamState, multiple: int):
 # ---------------------------------------------------------------------------
 
 def _point_sum(p: FMProblem, row):
-    """[N] -> [P] over the uniform views (layout-aware)."""
-    if p.vm_pb is None:
-        return row.reshape(p.num_points, p.views).sum(axis=1)
-    nb = p.num_points // p.vm_pb
-    return row.reshape(nb, p.views, p.vm_pb).sum(axis=1).reshape(-1)
+    """[N] -> [P] over the uniform views."""
+    return row.reshape(p.num_points, p.views).sum(axis=1)
 
 
 def _point_expand(p: FMProblem, col):
-    """[P] -> [N] broadcast over views (layout-aware)."""
-    if p.vm_pb is None:
-        return jnp.broadcast_to(
-            col[:, None], (p.num_points, p.views)).reshape(-1)
-    nb = p.num_points // p.vm_pb
+    """[P] -> [N] broadcast over views."""
     return jnp.broadcast_to(
-        col.reshape(nb, 1, p.vm_pb),
-        (nb, p.views, p.vm_pb)).reshape(-1)
-
-
-def view_major_perm(P: int, V: int, pb: int) -> np.ndarray:
-    """perm[new_lane] = point-major index: new order (block, view, p_local)."""
-    nblocks = P // pb
-    i = np.arange(nblocks)[:, None, None]
-    v = np.arange(V)[None, :, None]
-    q = np.arange(pb)[None, None, :]
-    return ((i * pb + q) * V + v).reshape(-1)
-
-
-def to_view_major(p: FMProblem, pb: int = 128) -> FMProblem:
-    """Re-lay the observation axis into the view-major blocked order the
-    Pallas kernels consume (see FMProblem.vm_pb).  One-time host cost; all
-    engine reductions stay exact (same per-point / per-image sums, summation
-    order permuted).  Requires pb | num_points (pad_problem first)."""
-    if p.vm_pb is not None:
-        if p.vm_pb != pb:
-            raise ValueError(f"already view-major with pb={p.vm_pb}")
-        return p
-    if p.num_points % pb != 0:
-        raise ValueError(f"pb={pb} must divide num_points={p.num_points}; "
-                         "use pad_problem")
-    perm = view_major_perm(p.num_points, p.views, pb)
-    obs_image = np.asarray(p.obs_image)[perm]
-    img_perm, img_bs = rcs.build_image_block_layout(obs_image, p.num_images)
-
-    def g(a):
-        return jnp.asarray(np.asarray(a)[perm])
-
-    return p._replace(
-        obs_point=g(p.obs_point), obs_image=jnp.asarray(obs_image),
-        obs_x=g(p.obs_x), obs_y=g(p.obs_y),
-        wxx=g(p.wxx), wxy=g(p.wxy), wyy=g(p.wyy),
-        img_perm=jnp.asarray(img_perm),
-        img_block_starts=jnp.asarray(img_bs),
-        vm_pb=pb,
-    )
+        col[:, None], (p.num_points, p.views)).reshape(-1)
 
 
 def _image_sum_stack(p: FMProblem, rows):
     """Per-image sums of F feature rows: returns [M, F].
 
     One row-gather into image-sorted order ([Nip, F]) + 512-block sums +
-    cumsum-diff; identical numerics to rcs._seg_image.
-
-    NOTE: with the feature rows built from jit ARGUMENTS (bigargs mode)
-    XLA decomposes the [Nip, F] gather into per-column [Nip, 1] copies
-    tile-padded 128x (measured: 20 x 586 MB HLO temps = OOM); callers on
-    that path should reduce chunk-wise with scatter-adds instead
-    (cov_direct.assemble_reduced_dense does)."""
+    cumsum-diff; identical numerics to rcs._seg_image.  The gathered
+    [Nip, F] copy is transient; reductions over many feature rows at once
+    (cov_direct.assemble_reduced_base) reduce chunk-wise instead."""
     x = jnp.stack(rows, axis=1)  # [N, F]
     xp = jnp.concatenate([x, jnp.zeros((1, x.shape[1]), x.dtype)])
     xi = xp[p.img_perm]  # [Nip, F]
@@ -345,15 +285,10 @@ def _hinv_apply(H, a0, a1, a2):
 # ---------------------------------------------------------------------------
 
 def linearize(p: FMProblem, state: ParamState, spec, damping,
-              state_lo: ParamState | None = None,
-              axis: str | None = None, cam_gather=None) -> FMBlocks:
+              axis: str | None = None) -> FMBlocks:
     """``axis``: shard_map axis name when the point-major axis is sharded
     across devices — cross-shard (image/global/scalar) reductions are psum-ed;
-    per-point quantities stay shard-local.
-
-    ``cam_gather``: optional fn(tbl [M, c<=8]) -> [8, N] replacing the
-    per-row XLA [N]<-[M] gathers (kernels.make_cam_gather — each XLA gather
-    costs ~5 ms at 1.2M obs on v5e; the whole linearize has 12-15)."""
+    per-point quantities stay shard-local."""
     from ..ops import fm
 
     def _ps(x):
@@ -366,22 +301,7 @@ def linearize(p: FMProblem, state: ParamState, spec, damping,
     Z = _point_expand(p, pts[:, 2])
 
     eo = state.eo
-    if cam_gather is not None:
-        eog_rows = cam_gather(eo)
-        eog = [eog_rows[a] for a in range(6)]
-    else:
-        eog = [eo[:, a][p.obs_image] for a in range(6)]
-
-    # hi/lo compensation of the projection differences (ops/fm.project_rows)
-    lo = None
-    if state_lo is not None:
-        lo = tuple(_point_expand(p, state_lo.points[:, a]) for a in range(3))
-        if cam_gather is not None:
-            lo_rows = cam_gather(state_lo.eo[:, :3])
-            lo = lo + tuple(lo_rows[a] for a in range(3))
-        else:
-            lo = lo + tuple(state_lo.eo[:, a][p.obs_image]
-                            for a in range(3))
+    eog = [eo[:, a][p.obs_image] for a in range(6)]
 
     C = state.io.shape[0]
     K = state.dist.shape[1]
@@ -399,17 +319,13 @@ def linearize(p: FMProblem, state: ParamState, spec, damping,
 
     rows_x, rows_y, pred_x, pred_y = fm.jacobian_rows(
         X, Y, Z, iog[0], iog[1], iog[2],
-        eog[0], eog[1], eog[2], eog[3], eog[4], eog[5], cg, spec, r0, lo=lo)
+        eog[0], eog[1], eog[2], eog[3], eog[4], eog[5], cg, spec, r0)
     w0 = p.obs_x - pred_x
     w1 = p.obs_y - pred_y
 
     # fixed-parameter masks (column == -2 protocol of the dense layout)
     fp = [_point_expand(p, p.free_point[a]) for a in range(3)]
-    if cam_gather is not None:
-        fe_rows = cam_gather(p.free_eo)
-        fe = [fe_rows[a] for a in range(6)]
-    else:
-        fe = [p.free_eo[:, a][p.obs_image] for a in range(6)]
+    fe = [p.free_eo[:, a][p.obs_image] for a in range(6)]
 
     Jp = tuple(rows_x[a] * fp[a] for a in range(3)) \
         + tuple(rows_y[a] * fp[a] for a in range(3))
@@ -520,11 +436,8 @@ def linearize(p: FMProblem, state: ParamState, spec, damping,
 # reduced system
 # ---------------------------------------------------------------------------
 
-def _cam_gather(p: FMProblem, xc, cam_gather=None):
+def _cam_gather(p: FMProblem, xc):
     """xc [M, 6] -> 6 rows [N]."""
-    if cam_gather is not None:
-        rows = cam_gather(xc)
-        return [rows[a] for a in range(6)]
     return [xc[:, a][p.obs_image] for a in range(6)]
 
 
@@ -537,9 +450,9 @@ def _xg_obs_rows(p: FMProblem, b: FMBlocks, xg):
     return [xg_eff[:, g][b.cam_obs] for g in range(Gp)]
 
 
-def _t_rows(p: FMProblem, b: FMBlocks, xc, xg, cam_gather=None):
+def _t_rows(p: FMProblem, b: FMBlocks, xc, xg):
     """t = P (Jc xc + Jg xg) per observation: 2 rows [N]."""
-    xcg = _cam_gather(p, xc, cam_gather)
+    xcg = _cam_gather(p, xc)
     t = []
     if b.Jg is None:
         Gp = len(b.Jg_loc) // 2
@@ -581,8 +494,8 @@ def schur_matvec(p: FMProblem, b: FMBlocks, xc, xg, axis: str | None = None,
     rows concatenated in axis-index order form the full [M, 6]); the full
     vector is re-formed with one tiled all_gather (tiny: 6M floats), and the
     per-image output is combined with one reduce_scatter so each device
-    keeps exactly its own rows — all_gather + reduce_scatter ride ICI in
-    place of the replicated psum."""
+    keeps exactly its own rows — all_gather + reduce_scatter take the place
+    of the replicated psum."""
     if cam_scatter and axis is None:
         raise ValueError("cam_scatter requires axis (a shard_map axis name)")
     if cam_scatter:
@@ -632,13 +545,12 @@ def schur_matvec(p: FMProblem, b: FMBlocks, xc, xg, axis: str | None = None,
 
 def prepare(p: FMProblem, state: ParamState, spec, damping,
             couple_global: bool = False,
-            state_lo: ParamState | None = None,
             axis: str | None = None,
             cam_scatter: bool = False):
     """Linearise + build rhs and the (camera, global) block preconditioner.
 
     All per-image reductions are fused into one [N, 39 + 6G] pass (cf.
-    rcs.prepare); the global Sgg block is assembled with one MXU matmul.
+    rcs.prepare); the global Sgg block is assembled with one matmul.
     With ``couple_global`` the exact camera-global off-diagonal blocks
     Scg = Hcg - Hcp Hpp^{-1} Hpg are assembled *directly* inside the same
     fused reduction (6G extra feature rows) instead of recovering them with
@@ -646,7 +558,7 @@ def prepare(p: FMProblem, state: ParamState, spec, damping,
     observation form Hpc_n^T Hppinv[pt_n] Hpg[pt_n] is exact for any
     visibility multiplicity because it is linear in Hpc_n.
     Returns (blocks, rc, rg, rcs.Precond)."""
-    b = linearize(p, state, spec, damping, state_lo=state_lo, axis=axis)
+    b = linearize(p, state, spec, damping, axis=axis)
     return reduce_blocks(p, b, state, damping, couple_global=couple_global,
                          axis=axis, cam_scatter=cam_scatter)
 
@@ -655,9 +567,7 @@ def reduce_blocks(p: FMProblem, b: FMBlocks, state: ParamState, damping,
                   couple_global: bool = False, axis: str | None = None,
                   cam_scatter: bool = False):
     """`prepare` minus the linearisation: build rhs + preconditioner from
-    an existing FMBlocks.  (The mixed-precision refiner does NOT route its
-    f64 gradient through here — it folds the f64 rhs into the CG right-hand
-    side directly, refine.Refiner._step_impl.)"""
+    an existing FMBlocks."""
     if cam_scatter and axis is None:
         raise ValueError("cam_scatter requires axis (a shard_map axis name)")
 
@@ -766,7 +676,7 @@ def reduce_blocks(p: FMProblem, b: FMBlocks, state: ParamState, damping,
         rgm = _ps(_image_sum_stack(p, rgq))                 # [M, Gp]
         rg_corr = jnp.zeros((C, Gp), rgm.dtype).at[
             p.cam_of_image].add(rgm).reshape(-1) * p.free_global
-        # T2 block-diagonal per camera: C masked MXU matmuls [2Gp, 2Gp]
+        # T2 block-diagonal per camera: C masked matmuls [2Gp, 2Gp]
         JglM = jnp.stack(b.Jg_loc)
         PJglM = jnp.stack(b.PJg_loc)
         T2 = _ps(jnp.stack([
@@ -777,7 +687,7 @@ def reduce_blocks(p: FMProblem, b: FMBlocks, state: ParamState, damping,
             [jnp.sum(b.Jg[g] * u0[0] + b.Jg[G2 + g] * u0[1])
              for g in range(G2)]))
 
-        # global block pieces: Sgg = Hgg - Hgp Hpp^{-1} Hpg via MXU matmuls
+        # global block pieces: Sgg = Hgg - Hgp Hpp^{-1} Hpg via matmuls
         JgM = jnp.stack(b.Jg)          # [2G, N]
         PJgM = jnp.stack(b.PJg)        # [2G, N]
         T2 = _ps(jnp.matmul(JgM, PJgM.T, precision=_PREC))  # [2G, 2G]
@@ -798,8 +708,7 @@ def finish_reduction(p: FMProblem, b: FMBlocks, state: ParamState, damping,
     """Shared tail of `prepare`: turn the fused per-image reduction ``red``
     [M(, /D), 39 (+ 6G)], the global rhs correction ``rg_corr`` [G], and the
     Sgg matmul pieces ``T2`` [2G, 2G] / ``T3`` [3G, 3G] into
-    (blocks, rc, rg, Precond).  Used by both the XLA reduction above and the
-    fused Pallas assembly kernel (kernels.prepare_pallas).
+    (blocks, rc, rg, Precond).
 
     Compact multi-camera mode (b.Jg is None): ``T2`` is the per-camera
     stack [C, 2Gp, 2Gp] (Hgg is block-diagonal), ``red`` carries 6*Gp
@@ -943,10 +852,9 @@ def _scg_correction(p: FMProblem, b: FMBlocks, hp, W, G2):
     return acc.reshape(M, 6, G2)
 
 
-def back_substitute_points(p: FMProblem, b: FMBlocks, xc, xg,
-                           cam_gather=None):
+def back_substitute_points(p: FMProblem, b: FMBlocks, xc, xg):
     """dx_p = Hpp^{-1} (bp - Hpx x): returns [P, 3]."""
-    t = _t_rows(p, b, xc, xg, cam_gather)
+    t = _t_rows(p, b, xc, xg)
     y = [_point_sum(p, b.Jp[a] * t[0] + b.Jp[3 + a] * t[1]) for a in range(3)]
     dx = _hinv_apply(b.Hpp_inv, b.bp[0] - y[0], b.bp[1] - y[1],
                      b.bp[2] - y[2])
@@ -1047,9 +955,7 @@ def omega_at_full(p: FMProblem, rp, b: FMBlocks, ext, dxp, dxc, dxg,
 
 
 def lm_step_full(p: FMProblem, rp, state: ParamState, spec, damping,
-                 cg_tol=1e-10, cg_maxiter=200, use_pallas=False,
-                 pallas_pb=None, couple_global=True,
-                 state_lo: ParamState | None = None):
+                 cg_tol=1e-10, cg_maxiter=200, couple_global=True):
     """lm_step extended with scale bars and the inner-constraint datum
     (exact low-rank corrections, parallel/freenet.py).  ``rp`` is the
     underlying rcs.RCSProblem carrying sb_*/datum fields.
@@ -1057,8 +963,7 @@ def lm_step_full(p: FMProblem, rp, state: ParamState, spec, damping,
     from . import freenet
 
     b, rc, rg, Minv = prepare(p, state, spec, damping,
-                              couple_global=couple_global,
-                              state_lo=state_lo)
+                              couple_global=couple_global)
     ext = None
     if rp.has_extras:
         ops = point_ops(p, b)
@@ -1068,19 +973,9 @@ def lm_step_full(p: FMProblem, rp, state: ParamState, spec, damping,
         rc, rg = ext.rc, ext.rg
     b, ext, rc, rg, Minv = jax.lax.optimization_barrier(
         (b, ext, rc, rg, Minv))
-    if use_pallas:
-        from . import kernels
 
-        pp = kernels.pack_fm(b, p, lean_only=True)
-        arrs = jax.lax.optimization_barrier(
-            (pp.packed, pp.obs_img, pp.hppinv))
-        pp = pp._replace(packed=arrs[0], obs_img=arrs[1], hppinv=arrs[2])
-        base = kernels.make_matvec(
-            pp, b.extra_c, b.extra_g, pb=pallas_pb,
-            bsteps=kernels.default_bsteps(p.num_points, pp.pb, p.views))
-    else:
-        def base(c, g):
-            return schur_matvec(p, b, c, g)
+    def base(c, g):
+        return schur_matvec(p, b, c, g)
     mv = freenet.wrap_matvec(base, ext) if ext is not None else base
     Mi = (freenet.wrap_precond(rcs.make_apply_M(Minv), ext)
           if ext is not None else Minv)
@@ -1094,50 +989,25 @@ def lm_step_full(p: FMProblem, rp, state: ParamState, spec, damping,
 
 
 def lm_step(p: FMProblem, state: ParamState, spec, damping,
-            cg_tol=1e-10, cg_maxiter=200, use_pallas=False,
-            pallas_pb=None, couple_global=True,
-            state_lo: ParamState | None = None, stall_limit=None,
-            matvec_passes: int = 3):
+            cg_tol=1e-10, cg_maxiter=200, couple_global=True,
+            stall_limit=None):
     """One LM inner solve; returns (dxp, dxc, dxg, blocks, cg_iterations).
 
-    ``use_pallas``: run BOTH the assembly (kernels.prepare_pallas — one
-    fused pass over the packed rows instead of the XLA reduction's ~3 HBM
-    round trips) and the CG matvec with the fused feature-major TPU kernels;
-    the rows are packed exactly once per step and shared by both kernels.
     ``couple_global``: upgrade the preconditioner with the exact
     camera-global off-diagonal blocks, assembled directly inside prepare()'s
     fused per-image reduction (large CG iteration savings at the cost of 6G
     extra feature rows in one pass — see prepare).
     ``cg_tol``/``cg_maxiter``/``stall_limit`` may be traced values — one
     compiled program can serve phases with different CG budgets."""
-    cgf = None
-    if use_pallas:
-        from . import kernels
+    b, rc, rg, Minv = prepare(p, state, spec, damping,
+                              couple_global=couple_global)
+    # materialise the linearisation before the CG loop (see rcs.lm_step)
+    b, rc, rg, Minv = jax.lax.optimization_barrier((b, rc, rg, Minv))
 
-        cgf = kernels.make_cam_gather(p)
-        b, rc, rg, Minv, pp = kernels.prepare_pallas(
-            p, state, spec, damping, couple_global=couple_global,
-            pb=pallas_pb, state_lo=state_lo, cam_gather=cgf)
-        # barrier only the array fields (PackedFM carries static ints)
-        b, rc, rg, Minv, arrs = jax.lax.optimization_barrier(
-            (b, rc, rg, Minv, (pp.packed, pp.obs_img, pp.hppinv)))
-        pp = pp._replace(packed=arrs[0], obs_img=arrs[1], hppinv=arrs[2])
-        # bsteps from the lane-block size: 2 amortises per-grid-step
-        # overhead for small blocks; 1 once nb >= 8192 (VMEM double-
-        # buffering; r05 exp_mv5)
-        matvec = kernels.make_matvec(
-            pp, b.extra_c, b.extra_g, pb=pallas_pb, passes=matvec_passes,
-            bsteps=kernels.default_bsteps(p.num_points, pp.pb, p.views))
-    else:
-        b, rc, rg, Minv = prepare(p, state, spec, damping,
-                                  couple_global=couple_global,
-                                  state_lo=state_lo)
-        b, rc, rg, Minv = jax.lax.optimization_barrier((b, rc, rg, Minv))
-
-        def matvec(c, g):
-            return schur_matvec(p, b, c, g)
+    def matvec(c, g):
+        return schur_matvec(p, b, c, g)
     xc, xg, it = rcs.pcg(None, None, rc, rg, Minv, tol=cg_tol,
                          maxiter=cg_maxiter, matvec=matvec,
                          stall_limit=stall_limit)
-    dxp = back_substitute_points(p, b, xc, xg, cam_gather=cgf)
+    dxp = back_substitute_points(p, b, xc, xg)
     return dxp, xc, xg, b, it

@@ -45,8 +45,8 @@ from typing import Callable, NamedTuple
 import jax
 import jax.numpy as jnp
 
-# TPU f32 matmuls default to a single bf16 MXU pass; the big over-points
-# contractions here pin full f32 precision.
+# An f32 matmul without a stated precision may run in TF32 on the GPU; the
+# big over-points contractions here pin full f32 precision.
 _PREC = jax.lax.Precision.HIGHEST
 
 
@@ -134,8 +134,7 @@ def _num_defects(defect_flags) -> int:
     return sum(1 for f in defect_flags if f)
 
 
-def prepare_extras(problem, state, bp, rc, rg, ops: PointOps, omega0,
-                   sb_misclosure=None, dpg_misclosure=None):
+def prepare_extras(problem, state, bp, rc, rg, ops: PointOps, omega0):
     """Build the exact low-rank corrections for the current linearisation.
 
     ``problem`` needs: sb_a/sb_b/sb_length/sb_weight (or None),
@@ -143,11 +142,6 @@ def prepare_extras(problem, state, bp, rc, rg, ops: PointOps, omega0,
     datum_mask_d/defect_flags_d (or None), free_point.
     ``bp`` is the base reduced-point rhs [P, 3]; ``rc``/``rg`` the base
     reduced rhs; ``omega0`` the base Omega at the linearisation point.
-    ``sb_misclosure``/``dpg_misclosure``: optional overrides for the bar /
-    direct-group misclosures — the mixed-precision refiner passes
-    f64-accurate values (length minus distance / observed minus current
-    cancel catastrophically in f32 near convergence; the *coefficients*
-    are condition-safe in f32, only the residuals are not).
 
     Scale bars and fully-populated direct-observation groups over point
     coordinates (DirectlyObservedParameterGroup.java:37-102 — the
@@ -182,10 +176,7 @@ def prepare_extras(problem, state, bp, rc, rg, ops: PointOps, omega0,
         fa = p.free_point[p.sb_a]
         fb = p.free_point[p.sb_b]
         w_s = p.sb_weight.astype(dtype)
-        if sb_misclosure is None:
-            w_bar = (p.sb_length - dist).astype(dtype)
-        else:
-            w_bar = jnp.asarray(sb_misclosure).astype(dtype)
+        w_bar = (p.sb_length - dist).astype(dtype)
         rows_idx.append(jnp.stack([p.sb_a, p.sb_b], axis=1))
         rows_val.append(jnp.stack([-unit * fa, unit * fb], axis=1))
         winv_blocks.append(jnp.diag(1.0 / w_s))
@@ -198,12 +189,9 @@ def prepare_extras(problem, state, bp, rc, rg, ops: PointOps, omega0,
         cov = p.dpg_cov.astype(dtype)                       # [n, n] = W^{-1}
         e = (jax.nn.one_hot(ax, 3, dtype=dtype)
              * p.free_point[pt])                            # masked E rows
-        if dpg_misclosure is None:
-            cur = jnp.take_along_axis(state.points[pt], ax[:, None],
-                                      axis=1)[:, 0]
-            w_d = (p.dpg_val - cur).astype(dtype)
-        else:
-            w_d = jnp.asarray(dpg_misclosure).astype(dtype)
+        cur = jnp.take_along_axis(state.points[pt], ax[:, None],
+                                  axis=1)[:, 0]
+        w_d = (p.dpg_val - cur).astype(dtype)
         rows_idx.append(jnp.stack([pt, pt], axis=1))
         rows_val.append(jnp.stack([e, jnp.zeros_like(e)], axis=1))
         winv_blocks.append(cov)

@@ -1,10 +1,11 @@
 """Multi-host orchestration helpers.
 
-Pod-slice runs (BASELINE config 5: 5k images / 1M points over N >= 2 hosts)
-use standard JAX multi-controller SPMD: every host runs the same program,
-`jax.distributed.initialize` wires the controllers together and the global
-mesh spans all chips; the shard_map LM step (parallel/spmd.py) then runs
-unchanged — psum collectives ride ICI within a slice and DCN across slices.
+Multi-host runs (BASELINE config 5: 5k images / 1M points over N >= 2
+hosts) use standard JAX multi-controller SPMD: every host runs the same
+program, `jax.distributed.initialize` wires the controllers together and
+the global mesh spans all devices; the shard_map LM step (parallel/spmd.py)
+then runs unchanged — psum collectives run over the links within a host
+(NVLink between the GPUs of one machine) and the network between hosts.
 
 The reference has no distributed mode (survey section 2.J) — this subsystem
 is new capability.
@@ -21,9 +22,10 @@ import numpy as np
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None) -> None:
-    """Wire up the multi-controller runtime.  On TPU pods with standard
-    metadata (GKE/GCE) all arguments are auto-detected; pass them explicitly
-    elsewhere (e.g. COORDINATOR=host0:1234 for CPU multi-process tests)."""
+    """Wire up the multi-controller runtime.  Where a cluster manager
+    provides the topology all arguments are auto-detected; pass them
+    explicitly elsewhere (e.g. COORDINATOR=host0:1234 for CPU
+    multi-process tests)."""
     import jax
 
     kwargs = {}
@@ -37,7 +39,8 @@ def initialize(coordinator_address: Optional[str] = None,
 
 
 def global_mesh(axis: str = "obs"):
-    """1-D mesh over every chip of every host (observation data parallel)."""
+    """1-D mesh over every device of every host (observation data
+    parallel)."""
     import jax
     from jax.sharding import Mesh
 
@@ -47,8 +50,9 @@ def global_mesh(axis: str = "obs"):
 def scenario_mesh(scenario_axis: str = "scenario", obs_axis: str = "obs",
                   scenarios_per_host: int = 1):
     """2-D mesh for scenario-batched fleets: the scenario axis spans hosts
-    (no cross-scenario communication -> DCN-friendly), the observation axis
-    spans the chips within a host (psum over ICI)."""
+    (no cross-scenario communication -> friendly to the slower network
+    between hosts), the observation axis spans the devices within a host
+    (psum over the links between them)."""
     import jax
     from jax.sharding import Mesh
 

@@ -19,13 +19,13 @@ Eliminating the points gives the reduced camera system over x = (cams, glob)
 whose matrix-vector product is computed *implicitly* from per-observation
 Jacobian blocks with segment-sums — O(N_obs) per product, S never
 materialised — and solved by PCG with an exact block-Jacobi preconditioner
-(6x6 per camera).  This is the TPU-native inversion of the reference's
+(6x6 per camera).  This is the array-native inversion of the reference's
 per-image Schur loop (BundleAdjustment.java:1197-1342): eliminate the big
 block (points), iterate on the small one.
 
 All control flow is lax.while_loop under jit; the observation axis is the
 data-parallel sharding axis (with obs arrays sharded over a mesh, XLA lowers
-the segment-sums to per-device partials + all-reduces over ICI).
+the segment-sums to per-device partials + all-reduces between devices).
 """
 
 from __future__ import annotations
@@ -60,14 +60,14 @@ class RCSProblem(NamedTuple):
     free_point: jnp.ndarray  # [P, 3] 1.0 = free, 0.0 = fixed
     free_eo: jnp.ndarray  # [M, 6]
     free_global: jnp.ndarray  # [G] with G = C * (3 + K)
-    # Optional dense visibility tables (gather-based reductions).  TPU
+    # Optional dense visibility tables (gather-based reductions).  A
     # scatter serialises on colliding indices, so per-image segment-sums of
-    # ~N/M rows each are the hot-loop bottleneck; with these tables every
+    # ~N/M rows each can dominate the hot loop; with these tables every
     # reduction becomes gather + dense sum (no scatter in the CG loop).
     # Entries == N point at an implicit zero pad row.
     point2obs: jnp.ndarray | None = None  # [P, Kp] int32
     img2obs: jnp.ndarray | None = None  # [M, Kc] int32
-    # Optional blocked image-reduction layout (preferred on TPU): a static
+    # Optional blocked image-reduction layout (preferred): a static
     # permutation into image-sorted order padded per image to a multiple of
     # IMG_BLOCK, followed by within-block sums and a short cumsum-diff over
     # block boundaries — no scatter, f32-safe two-level summation.
@@ -140,22 +140,18 @@ class Blocks(NamedTuple):
 def _hi_prec(fn):
     """Pin full-f32 matmul precision for everything traced inside ``fn``.
 
-    TPU f32 dots default to a single bf16xbf16 MXU pass (~4e-3 relative);
-    the block-layout einsums here are normal-equation / Schur products
-    where that silently degrades the step (measured on chip: the
-    data-parallel dryrun variant landed 30%% of a step away from the
-    reference engine).  jax.default_matmul_precision("highest") covers
-    every einsum/dot without an explicit precision= in the traced call
-    tree; explicitly-pinned products (Pallas kernels, tp.py) are
-    unaffected.
+    An f32 dot without a stated precision may run in TF32 on the GPU
+    (about three decimal digits); the block-layout einsums here are
+    normal-equation / Schur products where that silently degrades the
+    step.  jax.default_matmul_precision("highest") covers every einsum/dot
+    without an explicit precision= in the traced call tree;
+    explicitly-pinned products (tp.py) are unaffected.
 
-    Deliberately NOT applied to `pcg` / `finish_coupling`: running the CG
-    loop's small preconditioner products under ambient HIGHEST broke the
-    solve on the v5e backend (measured twice: CG exits by tolerance after
-    ~30-90 iterations with a step ~50% wrong, refinement contraction
-    collapses from ~1e-3/it to ~0.5/it; unwrapping exactly restores it).
-    The big per-observation contractions (linearize/prepare/matvec) are
-    where bf16 loses accuracy AND where HIGHEST is safe."""
+    Deliberately NOT applied to `pcg` / `finish_coupling`: their small
+    preconditioner products keep the backend default (see
+    `_EXACT_APPLY`).  The big per-observation contractions
+    (linearize/prepare/matvec) are where reduced precision loses accuracy
+    AND where HIGHEST is safe."""
     @functools.wraps(fn)
     def wrapped(*a, **k):
         with jax.default_matmul_precision("highest"):
@@ -193,8 +189,8 @@ IMG_BLOCK = 512
 
 
 def _seg_image(p: "RCSProblem", x):
-    """Sum per image.  Preference order: blocked permutation layout (TPU,
-    scatter-free, precision-safe) > gather table > segment_sum."""
+    """Sum per image.  Preference order: blocked permutation layout
+    (scatter-free, precision-safe) > gather table > segment_sum."""
     if p.img_perm is not None:
         flat = x.reshape(x.shape[0], -1)
         xp = jnp.concatenate([flat, jnp.zeros((1, flat.shape[1]), x.dtype)])
@@ -536,21 +532,22 @@ def camera_block_preconditioner(p: RCSProblem, b: Blocks):
 
 
 #: trace-time switch: apply the preconditioner blocks with elementwise
-#: multiply-sums (exact f32 on the VPU) instead of default-precision
-#: einsums.  On the v5e backend the einsum apply rounds through bf16; for
-#: mid-conditioned solves (same-problem dryrun, damping 1e-3) that leaves
-#: CG unable to converge at all, while for the deep refinement solves the
-#: bf16 rounding acts as an accidental regulariser — the exact apply
-#: surfaces tiny negative f32 eigenvalues of the reduced operator and CG
-#: breaks down at ~180 iterations (measured both ways; CPU f32 is fine
-#: either way).  Flagship solves keep the einsum default; cross-engine
-#: agreement checks enable `exact_preconditioner()` around their traces.
+#: multiply-sums (exact f32) instead of default-precision einsums.  An
+#: einsum at the backend's default f32 precision may round through a
+#: reduced-precision matmul (TF32 on the GPU); for mid-conditioned solves
+#: (same-problem dryrun, damping 1e-3) that can leave CG unable to
+#: converge, while for the deep refinement solves the rounding has acted
+#: as a regulariser — the exact apply surfaces tiny negative f32
+#: eigenvalues of the reduced operator and CG breaks down (CPU f32 is
+#: fine either way).  Flagship solves keep the einsum default;
+#: cross-engine agreement checks enable `exact_preconditioner()` around
+#: their traces.
 _EXACT_APPLY = False
 
 
 class exact_preconditioner:
-    """Context manager: trace enclosed solves with the exact (VPU
-    elementwise) preconditioner apply — see `_EXACT_APPLY`."""
+    """Context manager: trace enclosed solves with the exact (elementwise)
+    preconditioner apply — see `_EXACT_APPLY`."""
 
     def __enter__(self):
         global _EXACT_APPLY
@@ -580,10 +577,9 @@ class Precond(NamedTuple):
         zg = (Sgg - Scg^T D^{-1} Scg)^{-1} (rg - Scg^T u)
         zc = u - (D^{-1} Scg) zg
 
-    i.e. only the camera-camera coupling *through points* is dropped.
-    Measured (v5e, 100k pts / 500 img / 12 views, f32): CG to rel 1e-5 in
-    11 iterations vs 73 with the block preconditioner (1e-4: 3 vs 68), at
-    a setup cost of G = 10 extra matvecs."""
+    i.e. only the camera-camera coupling *through points* is dropped, at
+    a setup cost of G extra matvecs; at the 100k-point bench size it
+    saves several times that in CG iterations."""
 
     Minv_c: jnp.ndarray  # [M, 6, 6]
     Minv_g: jnp.ndarray  # [G, G]
@@ -603,7 +599,7 @@ def finish_coupling(Minv: Precond, Scg, Sgg, axis_cam: str | None = None) \
     devices (TP mode) — the over-images contraction is psum-ed so the
     replicated Sghat_inv is identical on every shard."""
     if _EXACT_APPLY:
-        # elementwise multiply-sum: exact f32 on the VPU (see _EXACT_APPLY)
+        # elementwise multiply-sum: exact f32 (see _EXACT_APPLY)
         W = (Minv.Minv_c[:, :, :, None] * Scg[:, None, :, :]).sum(axis=2)
         corr = (Scg[:, :, :, None] * W[:, :, None, :]).sum(axis=(0, 1))
     else:
@@ -623,7 +619,7 @@ def couple_preconditioner(matvec, Minv: Precond, num_images: int, G: int,
     Recovers the Scg [M, 6, G] and Sgg [G, G] blocks of the (damped) reduced
     system with G unit-vector products S @ [0; e_g] — G is tiny (3 + K per
     camera), so this costs G matvecs once per LM step and typically saves
-    far more CG iterations.  Works with any matvec (XLA or Pallas)."""
+    far more CG iterations.  Works with any matvec implementation."""
     cols_c = []
     cols_g = []
     for g in range(G):
@@ -694,7 +690,8 @@ def pcg(p: RCSProblem, b: Blocks, rc, rg, Minv, tol=1e-10, maxiter=200,
     [M, 6, 6] camera-block array (global block treated as identity), or a
     callable apply ``(rc, rg) -> (zc, zg)`` (e.g. the low-rank-corrected
     wrap of parallel/freenet.wrap_precond).
-    ``matvec(xc, xg) -> (Sc, Sg)`` overrides the product (Pallas kernel).
+    ``matvec(xc, xg) -> (Sc, Sg)`` overrides the product (e.g. the
+    feature-major `engine.schur_matvec`).
     ``stall_limit``: stop once no iteration in a window of this many
     improves the best residual by >=10% — f32 rounding floors the
     achievable residual (floor depends on the preconditioner), and spinning
@@ -795,9 +792,8 @@ def prepare(problem: RCSProblem, state: ParamState, spec, damping):
 
         [ Hcc diag terms | bc | Hxp Hpp^{-1} bp terms | Scc blocks ]
 
-    concatenated to a single [N, 54] reduction (minor dims of 6 alone run
-    the TPU vector lanes at ~5% occupancy; batched they reach ~42%, and the
-    reduction machinery runs once instead of four times).
+    concatenated to a single [N, 54] reduction (one wide reduction instead
+    of four narrow ones: the reduction machinery runs once).
 
     Returns (blocks, rc, rg, Precond)."""
     p = problem
@@ -887,8 +883,9 @@ def lm_step_full(problem: RCSProblem, state: ParamState, spec, damping,
     """lm_step extended with scale bars and the inner-constraint datum
     (exact low-rank corrections, parallel/freenet.py).
 
-    ``matvec_factory(blocks) -> matvec``: optional base S@x override (e.g.
-    the fused Pallas kernel); the low-rank corrections wrap it.
+    ``matvec_factory(blocks) -> matvec``: optional base S@x override (a
+    different implementation of the product on the same blocks); the
+    low-rank corrections wrap it.
     Returns (dxp, dxc, dxg, blocks, cg_it, extras-or-None)."""
     from . import freenet
 
@@ -922,9 +919,8 @@ def lm_step(problem: RCSProblem, state: ParamState, spec, damping,
             cg_tol=1e-10, cg_maxiter=200, matvec=None, stall_limit=None):
     """One full LM inner solve: linearise, reduce, PCG, back-substitute.
 
-    ``matvec``: optional override for the S@x product (e.g. the fused Pallas
-    kernel from parallel/kernels.make_matvec); defaults to the XLA
-    formulation.
+    ``matvec``: optional override for the S@x product; defaults to the
+    block-layout XLA formulation.
     Returns (dxp [P,3], dxc [M,6], dxg [G], blocks, cg_iterations)."""
     b, rc, rg, Minv = prepare(problem, state, spec, damping)
     # Materialise the linearisation before the CG loop: without the barrier

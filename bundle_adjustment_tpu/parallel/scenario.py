@@ -4,8 +4,8 @@ The expert-parallelism analogue for bundle adjustment (survey section 2.J,
 BASELINE.json config 5): fleets of *independent* calibration networks with
 identical shapes (same camera spec, same counts) are solved simultaneously
 by vmapping the whole LM step over a leading scenario axis — one compiled
-program, S networks per step, batched across the MXU/VPU.  With a device
-mesh, the scenario axis shards across chips (pure data parallelism, no
+program, S networks per step, batched.  With a device
+mesh, the scenario axis shards across devices (pure data parallelism, no
 cross-scenario communication).
 """
 

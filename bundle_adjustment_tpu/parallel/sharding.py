@@ -1,11 +1,12 @@
 """Multi-device sharding of the bundle-adjustment compute path.
 
 The reference is single-threaded (survey section 2.J); this module is the
-TPU-native scaling design: observations are sharded across a device mesh,
+array-native scaling design: observations are sharded across a device mesh,
 each device accumulates partial J^T W J / J^T W w contributions for the
 *reduced* camera system, and `psum` over the mesh combines them — the
-collectives ride ICI.  Point blocks (Hpp, 3x3 per point) are data-parallel
-over the observation shards as well because segment-sums commute with psum.
+collectives run over the device interconnect.  Point blocks (Hpp, 3x3 per
+point) are data-parallel over the observation shards as well because
+segment-sums commute with psum.
 
 Layout:
     mesh axis "obs"  — observation batches (data parallelism)

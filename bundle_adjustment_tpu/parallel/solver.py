@@ -62,8 +62,9 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
           interrupted: Optional[Callable[[], bool]] = None) -> RCSResult:
     """Run the LM loop to convergence on a large-scale problem.
 
-    ``matvec_factory(blocks) -> matvec``: optional per-iteration S@x override
-    (e.g. the fused Pallas kernel).
+    ``matvec_factory(blocks) -> matvec``: optional per-iteration S@x
+    override (a different implementation of the product on the same
+    blocks; the low-rank extras corrections wrap it).
     ``simulation``: EstimationType.SIMULATION semantics — the right-hand
     side is zeroed so every step is exactly 0 and Omega = 0; the machinery
     (and covariance recovery on the unchanged state) still runs — pure
@@ -78,8 +79,19 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
     (BundleAdjustment.java:1455-1457).
     """
     from ..solver.adjustment import EstimationState
+    from . import bigargs
 
     dtype = state.points.dtype
+    # host (numpy) arrays go to the device once; the big ones travel as jit
+    # arguments, not embedded constants
+    problem = jax.tree.map(
+        lambda x: jnp.asarray(x) if isinstance(x, np.ndarray) else x,
+        problem)
+    big_names, big_vals = bigargs.split_big(problem)
+
+    def _problem(big_):
+        return bigargs.merge(problem, big_names, big_)
+
     if tolerance is None:
         tolerance = float(np.sqrt(np.finfo(np.dtype(dtype.name)).eps))
 
@@ -97,9 +109,10 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
         # resume from.
         fire("ITERATE", max_iterations, 1)
         dxp, dxc, dxg, b, cg_it, ext = jax.jit(
-            lambda st: rcs.lm_step_full(problem, st, spec,
-                                        jnp.asarray(0.0, dtype),
-                                        cg_tol=cg_tol, cg_maxiter=0))(state)
+            lambda big_, st: rcs.lm_step_full(_problem(big_), st, spec,
+                                              jnp.asarray(0.0, dtype),
+                                              cg_tol=cg_tol, cg_maxiter=0))(
+            big_vals, state)
         ok = bool(np.isfinite(np.asarray(b.omega0)))
         fire("CONVERGENCE", tolerance, 0.0)
         return RCSResult(state=state, converged=ok, iterations=0,
@@ -115,14 +128,14 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
     history = []
 
     @jax.jit
-    def step_fn(st, lam):
-        return rcs.lm_step_full(problem, st, spec, lam, cg_tol=cg_tol,
+    def step_fn(big_, st, lam):
+        return rcs.lm_step_full(_problem(big_), st, spec, lam, cg_tol=cg_tol,
                                 cg_maxiter=cg_maxiter,
                                 matvec_factory=matvec_factory)
 
     @jax.jit
-    def omega_fn(b, ext, dxp, dxc, dxg):
-        return rcs.omega_at_full(problem, b, ext, dxp, dxc, dxg)
+    def omega_fn(big_, b, ext, dxp, dxc, dxg):
+        return rcs.omega_at_full(_problem(big_), b, ext, dxp, dxc, dxg)
 
     @jax.jit
     def apply_fn(st, dxp, dxc, dxg, alpha):
@@ -136,13 +149,13 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
         it_done = k + 1
         fire("ITERATE", max_iterations, it_done)
         lam = jnp.asarray(adapted, dtype)
-        dxp, dxc, dxg, b, cg_it, ext = step_fn(state, lam)
+        dxp, dxc, dxg, b, cg_it, ext = step_fn(big_vals, state, lam)
 
         rejected = False
         alpha = 1.0
         if adapted > 0:
             alpha = min(0.25 * adapted ** -0.05, 0.75)
-            cur = float(omega_fn(b, ext, alpha * dxp, alpha * dxc,
+            cur = float(omega_fn(big_vals, b, ext, alpha * dxp, alpha * dxc,
                                  alpha * dxg))
             lam_old = adapted
             # shared reference schedule incl. the 1/sqrt(eps) runaway cap +

@@ -4,7 +4,7 @@ The jit-autosharding path (__graft_entry__.dryrun_multichip) lets XLA place
 collectives; this module is the explicit formulation for pod-scale control:
 each device holds a contiguous shard of the observation arrays, computes
 partial segment reductions over its local observations, and `psum` over the
-mesh combines the point/camera/global blocks — the collectives ride ICI.
+mesh combines the point/camera/global blocks over the device interconnect.
 Parameters are replicated (points [P,3] is 24 MB at P=1e6 in f64 — cheap).
 For point-axis sharding on the feature-major engine (shard-local point
 reductions, psum-combined image partials) see parallel/spmd_fm.py — the

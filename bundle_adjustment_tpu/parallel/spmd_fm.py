@@ -1,7 +1,7 @@
 """SPMD LM step on the feature-major engine: point-axis sharding.
 
 parallel/spmd.py shards the observation axis of the legacy block layout
-(scatter segment-sums — the formulation rcs.py documents as the TPU
+(scatter segment-sums — the formulation rcs.py documents as the hot-loop
 bottleneck).  This module shards the **uniform point-major axis** of the
 feature-major engine instead (survey section 2.J's SP analogue / point-axis
 scaling):
@@ -10,7 +10,7 @@ scaling):
   each (point reductions stay shard-local reshapes — zero communication);
 * per-image reductions run the scatter-free blocked layout per shard with
   a *per-shard* static permutation, then one psum combines the [M, F]
-  partials over ICI;
+  partials;
 * the reduced system (cameras + globals) is replicated; the PCG loop runs
   redundantly with a single psum pair per matvec.
 
@@ -38,7 +38,7 @@ def pad_for_mesh(problem: rcs.RCSProblem, state: ParamState, mesh: Mesh,
                  axis: str = AXIS, multiple: int = 1,
                  images: bool = False):
     """Pad the point count so every shard holds the same number of whole
-    points (and optionally a multiple of the Pallas lane block).  With
+    points (and optionally a multiple of ``multiple``).  With
     ``images`` also pad the image count to the mesh size (fully-fixed
     dummy images) as the camera-sharded TP step requires."""
     D = mesh.shape[axis]

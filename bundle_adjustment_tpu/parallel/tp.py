@@ -3,12 +3,12 @@
 Survey section 2.J's TP row: "shard the reduced normal matrix /
 factorization panels across devices".  The reference factorises its
 (packed, dense) normal system with single-threaded LAPACK
-(``MathExtension.java:239-426``); the flagship TPU path avoids an explicit
+(``MathExtension.java:239-426``); the flagship scale path avoids an explicit
 reduced matrix entirely (implicit-Schur PCG, `parallel/rcs.py`).  This
 module covers the ground between the two: an **explicit dense reduced
 system** assembled in one batched pass, factorised by a **distributed
 blocked right-looking Cholesky** whose row panels live on different
-devices of a `jax.sharding.Mesh` — the TPU-native equivalent of a
+devices of a `jax.sharding.Mesh` — the array-native equivalent of a
 ScaLAPACK ``pdpotrf``:
 
 Two factorization bodies exist, dispatched by `cholesky_traced` on the
@@ -22,9 +22,9 @@ block count nb = n/block:
   elimination.  Per block step: the owner's block row is replicated with
   one ``psum`` (masked contribution trick), every device solves its
   local panel against ``L_kk^{-T}``, one ``all_gather`` re-forms the
-  column panel in natural order, and the trailing update is a local MXU
-  matmul over the remaining rows.  Measured (BENCH_r04): 2276 GFLOP/s at
-  n = 4096 on one v5e chip = 83% of the single-chip XLA Cholesky.
+  column panel in natural order, and the trailing update is a local
+  matmul over the remaining rows.  bench.py phase (e) times it against
+  XLA's single-device Cholesky.
 * ``_chol_local`` (nb > _MAX_UNROLL fallback): contiguous row panels +
   `lax.fori_loop` with full-width masked trailing updates — bounded
   compile time for very large nb at ~3x the useful flops.
@@ -53,9 +53,9 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from . import rcs
 
-# TPU f32 matmuls default to one bf16xbf16 MXU pass, silently rounding both
-# operands to bf16 (~4e-3 relative): unacceptable for covariance / normal-
-# equation products.  All value x value contractions here pin full f32.
+# An f32 matmul without a stated precision may run in TF32 on the GPU (about
+# three decimal digits): unacceptable for covariance / normal-equation
+# products.  All value x value contractions here pin full f32.
 _PREC = jax.lax.Precision.HIGHEST
 
 AXIS = "tp"
@@ -258,8 +258,7 @@ def _chol_cyclic(A, bs, axis, D):
     distribution and a Python-unrolled outer loop, so every trailing update
     is a STATIC shrinking slice — [rows > k, cols > k] only — instead of
     the fori_loop fallback's full-width masked matmul (~3x the useful
-    flops; tp_cholesky measured 12-23% of the single-device XLA Cholesky
-    rate, VERDICT r3 weak-6).
+    flops).
 
     ``A``: [nbl*bs, n] local rows; local block j holds GLOBAL block row
     j*D + d (cyclic), so the per-device trailing row count shrinks in step

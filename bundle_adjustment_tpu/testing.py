@@ -92,8 +92,10 @@ def make_synthetic_scene(
     coords = [ObjectCoordinate(str(i + 1), *pts[i]) for i in range(num_points)]
 
     # exact forward model for observation generation
-    from .ops.residuals import predict_image_point
+    import jax
     import jax.numpy as jnp
+
+    from .ops.residuals import predict_image_point
 
     spec = cam.build_spec()
     coeff_template = np.zeros(spec.num_coefficients)
@@ -117,10 +119,21 @@ def make_synthetic_scene(
         img = cam.add_image(m + 1)
         img.eo.set(*eo_true[m])
 
+    # every (image, point) projection in one vectorised pass
+    local = np.concatenate([
+        np.broadcast_to(pts[None], (num_images, num_points, 3)),
+        np.broadcast_to(io_true, (num_images, num_points, 3)),
+        np.broadcast_to(eo_true[:, None], (num_images, num_points, 6)),
+        np.broadcast_to(coeff_template,
+                        (num_images, num_points, coeff_template.size)),
+    ], axis=2).reshape(num_images * num_points, -1)
+    xy_all = np.asarray(jax.jit(jax.vmap(
+        lambda loc: predict_image_point(loc, spec, cam.r0)))(
+            jnp.asarray(local))).reshape(num_images, num_points, 2)
+
     for m, img in enumerate(cam):
         for i, oc in enumerate(coords):
-            local = np.concatenate([pts[i], io_true, eo_true[m], coeff_template])
-            xy = np.asarray(predict_image_point(jnp.asarray(local), spec, cam.r0))
+            xy = xy_all[m, i]
             if not np.all(np.isfinite(xy)) or np.abs(xy).max() > 50:
                 continue
             xy = xy + rng.normal(0.0, noise, 2) if noise > 0 else xy

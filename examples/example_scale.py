@@ -1,4 +1,4 @@
-"""Scale-path example: the reference workflow at 20k points on one chip.
+"""Scale-path example: the reference workflow at 20k points on one device.
 
 The reference's examples are object-graph pipelines (ExampleReport /
 ExampleFlatFiles, survey I1-I3); this example shows the same user story at
@@ -7,7 +7,7 @@ network solved by the point-eliminated implicit-Schur engine
 (`parallel.solver.solve`), refined to ~1e-6 absolute, with posterior
 per-point sigmas recovered from the dense-factored reduced system
 (`parallel.cov_direct`) — the REDUCED-inversion covariance story of
-BundleAdjustment.java:255-298 re-designed for TPU.
+BundleAdjustment.java:255-298 re-designed for an accelerator.
 
 Runs on CPU too (slower; pass a smaller size).  Usage:
 
@@ -23,21 +23,22 @@ import numpy as np
 def main():
     import jax
 
-    jax.config.update("jax_enable_x64", True)  # refinement gradient is f64
+    jax.config.update("jax_enable_x64", True)  # refinement is f64
     import jax.numpy as jnp
 
     sys.path.insert(0, ".")
     import bench as B
-    from bundle_adjustment_tpu.parallel import (
-        cov_direct, engine, refine, solver)
+    from bundle_adjustment_tpu.parallel import engine, refine, solver
 
     P = int(sys.argv[1]) if len(sys.argv) > 1 else 20_000
     M = int(sys.argv[2]) if len(sys.argv) > 2 else 100
     V = int(sys.argv[3]) if len(sys.argv) > 3 else 8
 
     t0 = time.time()
-    problem, state0, spec = B.build_problem(P, M, V, jnp.float32,
-                                            pad128=True)
+    problem, state0, spec = B.build_problem(P, M, V, jnp.float32)
+    # zero-weight dummy points up to a multiple of 128: cov_direct chunks
+    # the point axis by divisors of P
+    problem, state0, _ = engine.pad_problem(problem, state0)
     print(f"problem: P={problem.num_points} M={M} V={V} "
           f"({time.time() - t0:.1f}s to build)")
 
@@ -49,20 +50,18 @@ def main():
     print(f"f32 phase: {res.iterations} iterations, "
           f"max|dx|={res.max_abs_dx:.2e}, status={res.status.name}")
 
-    # mixed-precision refinement to ~1e-6 absolute
+    # f64 refinement to ~1e-6 absolute
     r = refine.Refiner(problem, spec)
-    s, history = r.refine(res.state, tolerance=1e-6, max_iterations=10)
+    s, history = r.refine(res.state, tolerance=1e-6, max_iterations=8)
     print(f"refinement: {len(history)} iterations, "
           f"max|dx|={history[-1]:.2e}")
 
-    # posterior covariance: every point's 3x3 block from the factored
-    # reduced system (sigma0_post^2-scaled sigmas like ExampleReport)
-    fmp = engine.fm_problem(problem)
-    state = s.hi
-    bl = engine.linearize(fmp, state, spec, jnp.asarray(0.0, jnp.float32))
-    S = cov_direct.assemble_reduced_dense(fmp, bl)
-    Qred = cov_direct.reduced_inverse(S)
-    Q = np.asarray(cov_direct.point_covariance_dense(fmp, bl, Qred))
+    # posterior covariance in f64 at the refined state: every point's 3x3
+    # block from the factored reduced system (sigma0_post^2-scaled sigmas
+    # like ExampleReport)
+    Q = np.asarray(B.cov_fused(r.fmp64, spec)(s))
+    if not np.isfinite(Q).all():
+        raise RuntimeError("non-finite covariance blocks")
     sig = np.sqrt(np.abs(Q[:, [0, 1, 2], [0, 1, 2]]))
     free = np.asarray(problem.free_point)[:, 0] > 0
     print(f"point sigmas (cofactor): "

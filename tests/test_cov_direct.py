@@ -24,7 +24,7 @@ def small_problem():
 
 
 def test_dense_assembly_matches_tp(small_problem):
-    """cov_direct.assemble_reduced_dense (chunked MXU panels) ==
+    """cov_direct.assemble_reduced_dense (chunked matmul panels) ==
     tp.assemble_reduced_system (pair-tensor formulation) element-wise."""
     from bundle_adjustment_tpu.parallel import cov_direct, tp
 
@@ -38,7 +38,7 @@ def test_dense_assembly_matches_tp(small_problem):
 
 
 def test_panel_and_sparse_corrections_agree(small_problem):
-    """The two corrections formulations (dense MXU panels vs sparse pair
+    """The two corrections formulations (dense matmul panels vs sparse pair
     blocks) produce the same (Acc, Acg) and the same assembled S for both
     dispatch settings."""
     from bundle_adjustment_tpu.parallel import cov_direct
@@ -150,9 +150,9 @@ def test_blocked_reduced_inverse_matches_oneshot():
 
 
 def test_panel_onehot_fill_f32():
-    """The f32 one-hot MXU panel fill (the TPU branch; scatter destinations
-    tile-pad 20x at M=5000) agrees with the sparse pair-block form to the
-    split-bf16 accuracy (~2^-16 relative)."""
+    """The f32 one-hot matmul panel fill (the large-M branch, in place of a
+    [c, 3, M, 6] scatter destination) agrees with the sparse pair-block
+    form to the split-bf16 accuracy (~2^-16 relative)."""
     import bench as B
     from bundle_adjustment_tpu.parallel import cov_direct, engine
 
@@ -230,3 +230,49 @@ def test_point_cov_group_matches_dense(small_problem):
         fmp, h2, hi, hg, Qred, G2, jnp.int32(half), chunk, nch - half))
     np.testing.assert_allclose(np.concatenate([r1, r2], axis=1), rows,
                                rtol=1e-12)
+
+
+@pytest.mark.parametrize("path", ["fused", "staged"])
+def test_bench_cov_programs_match_gather_recovery(small_problem, path):
+    """The bench's covariance programs — one fused program, or the staged
+    programs (sparse pair-block corrections, donated inverse, grouped
+    recovery) — give the blocks of the one-shot gather recovery, in f64."""
+    import bench as B
+    from bundle_adjustment_tpu.parallel import cov_direct
+
+    problem, fmp, state, spec, b_fm, _ = small_problem
+    Qred = cov_direct.reduced_inverse(
+        cov_direct.assemble_reduced_dense(fmp, b_fm))
+    ref = np.asarray(cov_direct.point_covariance_dense(
+        fmp, b_fm, Qred, point_ids=np.arange(fmp.num_points)))
+    if path == "fused":
+        Q = np.asarray(B.cov_fused(fmp, spec)(state))
+    else:
+        r = np.asarray(B.cov_staged(fmp, spec)(state))
+        Q = np.stack([np.stack([r[0], r[1], r[2]], axis=1),
+                      np.stack([r[1], r[3], r[4]], axis=1),
+                      np.stack([r[2], r[4], r[5]], axis=1)], axis=1)
+    assert Q.shape == ref.shape and Q.dtype == np.float64
+    np.testing.assert_allclose(Q, ref, rtol=1e-8,
+                               atol=1e-10 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("share,path", [(1e9, "fused"), (0.0, "staged")])
+def test_bench_cov_phase_path_and_nonfinite_failure(small_problem, share,
+                                                    path, monkeypatch):
+    """bench (d) takes the path its memory estimate allows, records every
+    block finite at a good state, and fails the run when a block is
+    not finite."""
+    import bench as B
+
+    problem, fmp, state, spec, b_fm, _ = small_problem
+    monkeypatch.setattr(B, "FUSED_COV_SHARE", share)
+    G = int(fmp.free_global.shape[0])
+    N = int(fmp.obs_x.shape[0])
+    out = B._cov_phase({}, {}, fmp, state, spec, fmp.num_images, G, N,
+                       None)
+    assert out["cov_path"] == path and out["cov_dtype"] == "float64"
+    assert out["cov_nonfinite_blocks"] == 0
+    bad = state._replace(points=state.points.at[5, 0].set(jnp.nan))
+    with pytest.raises(RuntimeError, match="not finite"):
+        B._cov_phase({}, {}, fmp, bad, spec, fmp.num_images, G, N, None)

@@ -1,5 +1,5 @@
-"""Mixed-precision refinement (parallel/refine.py): f64-grade convergence
-from an f32 LM floor, on CPU."""
+"""Refinement (parallel/refine.py): f64-grade convergence from an f32 LM
+floor, on CPU."""
 
 import jax
 import pytest
@@ -8,7 +8,7 @@ import numpy as np
 
 import bench as B
 from bundle_adjustment_tpu.models.problem import ParamState
-from bundle_adjustment_tpu.parallel import engine, hilo, rcs, refine
+from bundle_adjustment_tpu.parallel import engine, rcs, refine
 
 
 def test_refinement_reaches_f64_grade():
@@ -42,10 +42,9 @@ def test_refinement_reaches_f64_grade():
     err32 = np.abs(np.asarray(s32.points, np.float64)
                    - np.asarray(ref.points)).max()
 
-    # phase 2: mixed-precision refinement
+    # phase 2: f64 refinement
     r = refine.Refiner(prob32, spec)
-    s, history = r.refine(s32, tolerance=1e-7, max_iterations=12)
-    full = hilo.to_f64(s)
+    full, history = r.refine(s32, tolerance=1e-7, max_iterations=12)
     err = np.abs(np.asarray(full.points) - np.asarray(ref.points)).max()
     scale = float(np.abs(np.asarray(ref.points)).max())
 
@@ -78,7 +77,7 @@ def _free_network_with_bar(num_points, num_images, views, dtype, seed=7):
 
 
 def test_refinement_with_extras_free_network():
-    """Mixed-precision refinement on a free-network + scale-bar problem
+    """Refinement on a free-network + scale-bar problem
     (the NotImplementedError case of rounds <= 3): converges to
     max|dx| <= 1e-7 and matches the all-f64 lm_step_full optimum on
     datum-invariant observables (omega, bar length, point distances)."""
@@ -112,15 +111,13 @@ def test_refinement_with_extras_free_network():
                                   alpha * dxg)
         damp = 0.0 if damp < 1e-9 else damp * 0.2
 
-    # mixed-precision refinement with extras
+    # refinement with extras
     r = refine.Refiner(prob32, spec)
-    s, history = r.refine(s32, tolerance=1e-7, max_iterations=15)
+    full, history = r.refine(s32, tolerance=1e-7, max_iterations=15)
     assert history[-1] <= 1e-7, history
 
-    full = hilo.to_f64(s)
     # omega at the refined state (datum-invariant global optimality check)
-    _, _, _, omega0, wsb, _wd = r.gradient64(
-        r.fmp64, jax.device_put(full, r._gdev) if r._gdev else full)
+    omega0 = r.omega(full)
     assert abs(float(omega0) - om_ref) / om_ref < 1e-9
 
     # datum-invariant geometry: inter-point distances match the reference
@@ -151,3 +148,39 @@ def test_refinement_with_extras_100k():
     r = refine.Refiner(prob32, spec)
     s, history = r.refine(s32, tolerance=1e-6, max_iterations=15)
     assert history[-1] <= 1e-6, history
+
+
+def test_refiner_f64_problem_on_compute_device():
+    """The refiner keeps its f64 problem on the compute device and runs its
+    f64 steps there — there is no host-side backend to choose."""
+    import inspect
+
+    prob32, st32, spec = B.build_problem(128, 8, 4, jnp.float32, seed=1)
+    assert "gradient_device" not in inspect.signature(
+        refine.Refiner).parameters
+    r = refine.Refiner(prob32, spec)
+    dev = jax.devices()[0]
+    leaves64 = [x for x in jax.tree.leaves(r.fmp64)
+                if isinstance(x, jax.Array)]
+    assert any(x.dtype == jnp.float64 for x in leaves64)
+    assert all(x.devices() == {dev} for x in leaves64)
+    omega = r.omega(st32)
+    assert omega.dtype == jnp.float64 and omega.devices() == {dev}
+    s, max_dx, omega0, _ = r.step(st32)
+    assert float(omega0) == pytest.approx(float(omega), rel=1e-12)
+    assert s.points.dtype == jnp.float64 and s.points.devices() == {dev}
+
+
+def test_refine_phase_converges_in_few_steps():
+    """bench (a): from the f32 phase's floor the f64 refinement reaches
+    max|dx| <= 1e-6 in a few steps — each step contracts the error by the
+    f64 CG solve's accuracy, not by an f32 operator's."""
+    prob32, st32, spec = B.build_problem(1024, 32, 8, jnp.float32, seed=5)
+    prob32, st32, _ = engine.pad_problem(prob32, st32)
+    fmp32 = engine.fm_problem(prob32)
+    _, lm = B.make_lm(fmp32, prob32, spec, jnp.float32)
+    state, floor32, _, _ = B.f32_phase(lm, st32)
+    r = refine.Refiner(prob32, spec)
+    s, n, mdx, _ = B.refine_phase(r, state)
+    assert mdx <= 1e-6 and n <= 4, (n, mdx, floor32)
+    assert s.points.dtype == jnp.float64
